@@ -1,0 +1,82 @@
+"""Carry weights between the JAX reference's parameter tree and the port.
+
+The reference keeps parameters as nested dicts whose stack leaves carry a
+leading ``(n_groups,)`` axis under ``stack/sub{j}/...`` (layer
+``g * period + j`` is entry ``g`` of ``sub{j}``). Leaves here are numpy
+arrays; bf16 leaves arrive either as ml_dtypes ``bfloat16`` arrays or as
+their ``uint16`` bit view (the reference checkpointer's npz convention)
+and move bit-exactly.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch import devices
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+
+Tree = Dict[str, Any]
+
+
+def _to_torch(a: np.ndarray, device: torch.device) -> nn.Parameter:
+    a = np.array(a)        # a copy: the port never aliases the caller's buffers
+    if a.dtype.name == "bfloat16" or a.dtype == np.uint16:
+        # int16 carries the bits: torch has full int16 support in every version
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return nn.Parameter(t.to(device), requires_grad=False)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _params(tree: Tree, device: torch.device) -> nn.ParameterDict:
+    return nn.ParameterDict({k: _to_torch(a, device) for k, a in tree.items()})
+
+
+def from_jax_params(tree: Tree, cfg: ModelConfig, *,
+                    device: Union[str, torch.device] = "cuda") -> nn.ModuleDict:
+    """The reference's parameter tree (numpy leaves) -> the port's model,
+    value for value."""
+    transformer.check_ported(cfg)
+    dev = devices.resolve(device)
+    period = cfg.layer_period
+    n_groups = cfg.n_layers // period
+    layers = []
+    for g in range(n_groups):
+        for j in range(period):
+            sub = tree["stack"][f"sub{j}"]
+            layers.append(nn.ModuleDict({
+                name: _params({k: a[g] for k, a in leaves.items()}, dev)
+                for name, leaves in sub.items()}))
+    model = nn.ModuleDict({"stack": nn.ModuleList(layers)})
+    for key in ("embed", "final_norm", "unembed"):
+        if key in tree:
+            model[key] = _params(tree[key], dev)
+    return model
+
+
+def to_jax_layout(model: nn.ModuleDict, cfg: ModelConfig) -> Tree:
+    """The inverse of ``from_jax_params``: numpy leaves, stack leaves
+    stacked along ``(n_groups,)``, bf16 as its ``uint16`` bit view."""
+    period = cfg.layer_period
+    tree: Tree = {key: {k: _to_numpy(t) for k, t in model[key].items()}
+                  for key in ("embed", "final_norm", "unembed") if key in model}
+    layers = list(model["stack"])
+    tree["stack"] = {
+        f"sub{j}": {
+            name: {k: np.stack([_to_numpy(layer[name][k])
+                                for layer in layers[j::period]])
+                   for k in layers[j][name].keys()}
+            for name in layers[j].keys()}
+        for j in range(period)}
+    return tree

@@ -1,0 +1,140 @@
+"""Primitive layers: norms, rotary embeddings, MLPs, embeddings.
+
+Port of ``repro/models/layers.py``. Parameters are ``nn.ParameterDict``s
+indexed by the reference's leaf names, so every function here also takes a
+plain dict of tensors. Weights keep the reference's ``(d_in, d_out)`` layout
+and are applied as ``x @ w``. Initializers draw from an explicit
+``torch.Generator``: only shapes and standard deviations match the
+reference, so numeric parity goes through ``repro_torch.convert``.
+"""
+from __future__ import annotations
+
+import math
+from functools import partial
+from typing import Mapping, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+Params = Mapping[str, torch.Tensor]
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    # serving weights are frozen; a training path turns requires_grad on
+    return nn.Parameter(t, requires_grad=False)
+
+
+# --------------------------------------------------------------------------
+# norms
+# --------------------------------------------------------------------------
+
+def rmsnorm_init(d: int, *, device=None) -> nn.ParameterDict:
+    return nn.ParameterDict(
+        {"scale": _param(torch.ones(d, dtype=torch.float32, device=device))})
+
+
+def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Computed in fp32 and cast back to x's dtype."""
+    dt = x.dtype
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * params["scale"]
+    return out.to(dt)
+
+
+# --------------------------------------------------------------------------
+# rotary position embeddings
+# --------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, style: str,
+                     device=None) -> torch.Tensor:
+    """Inverse frequencies. style='half' (chatglm 2d-rope) rotates only the
+    first half of head dims, so it needs head_dim//4 frequencies."""
+    rot = head_dim if style == "full" else head_dim // 2
+    expo = torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot
+    return 1.0 / (theta ** expo)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               style: str = "full") -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq) integer.
+
+    Rotates interleaved pairs (x[..., 0::2], x[..., 1::2]), as the
+    reference does, not the half-split pairs of ``rotate_half``."""
+    if style == "none":
+        return x
+    inv = rope_frequencies(x.shape[-1], theta, style, device=x.device)
+    ang = positions[..., :, None].float() * inv               # (..., S, rot/2)
+    cos = torch.cos(ang)[..., :, None, :]                     # (..., S, 1, rot/2)
+    sin = torch.sin(ang)[..., :, None, :]
+
+    if style == "half":
+        rot_part, pass_part = x.chunk(2, dim=-1)
+    else:
+        rot_part, pass_part = x, None
+
+    xf = rot_part.float()
+    x1, x2 = xf[..., 0::2], xf[..., 1::2]
+    r1 = x1 * cos - x2 * sin
+    r2 = x2 * cos + x1 * sin
+    rotated = torch.stack([r1, r2], dim=-1).reshape(rot_part.shape).to(x.dtype)
+    if pass_part is not None:
+        return torch.cat([rotated, pass_part], dim=-1)
+    return rotated
+
+
+# --------------------------------------------------------------------------
+# dense / GLU MLP
+# --------------------------------------------------------------------------
+
+def _dense_init(gen: torch.Generator, d_in: int, d_out: int,
+                scale: Optional[float] = None, *, dtype=torch.bfloat16,
+                device=None) -> nn.Parameter:
+    if scale is None:
+        scale = 1.0 / math.sqrt(d_in)
+    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
+                    device=device) * scale
+    return _param(w.to(dtype))
+
+
+def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, glu: bool, *,
+             dtype=torch.bfloat16, device=None) -> nn.ParameterDict:
+    p = nn.ParameterDict({
+        "w_up": _dense_init(gen, d_model, d_ff, dtype=dtype, device=device),
+        "w_down": _dense_init(gen, d_ff, d_model, dtype=dtype, device=device)})
+    if glu:
+        p["w_gate"] = _dense_init(gen, d_model, d_ff, dtype=dtype, device=device)
+    return p
+
+
+def mlp_apply(params: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """SwiGLU when the params hold ``w_gate``; gelu is the tanh form, as
+    ``jax.nn.gelu`` defaults to."""
+    activation = F.silu if act == "silu" else partial(F.gelu, approximate="tanh")
+    up = x @ params["w_up"]
+    if "w_gate" in params:
+        up = activation(x @ params["w_gate"]) * up
+    else:
+        up = activation(up)
+    return up @ params["w_down"]
+
+
+# --------------------------------------------------------------------------
+# embeddings
+# --------------------------------------------------------------------------
+
+def embedding_init(gen: torch.Generator, vocab: int, d: int, *,
+                   dtype=torch.bfloat16, device=None) -> nn.ParameterDict:
+    # stddev d^-0.5 keeps tied-unembedding logits O(1) at init
+    tbl = torch.randn((vocab, d), generator=gen, dtype=torch.float32,
+                      device=device) * (1.0 / math.sqrt(d))
+    return nn.ParameterDict({"table": _param(tbl.to(dtype))})
+
+
+def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["table"][tokens]
+
+
+def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
+    return x @ params["table"].T

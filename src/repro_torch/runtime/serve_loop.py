@@ -1,0 +1,121 @@
+"""Serving: prefill/decode step factories + HeMT continuous batching.
+
+Port of ``repro/runtime/serve_loop.py``. ``HeMTBatcher`` is the paper's
+§5.1 estimator applied to replicas: request batches are sized proportional
+to AR(1)-estimated per-replica decode throughput, so heterogeneous replicas
+reach their batch deadlines together. ``plan()``, which hands the
+estimator to the fleet-serving scenario, is not ported yet.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Sequence
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.estimators import ARSpeedEstimator
+from repro_torch.core.partitioner import even_split, proportional_split
+from repro_torch.models.model import decode_step, prefill
+
+
+def make_serve_step(cfg: ModelConfig, *, sample: str = "greedy") -> Callable:
+    """serve_step(params, state, tokens (B,)) -> (next_tokens (B,),
+    logits (B,V), new state). The state's caches are updated in place."""
+    if sample != "greedy":
+        raise ValueError(sample)
+
+    @torch.no_grad()
+    def serve_step(params, state, tokens: torch.Tensor):
+        logits, new_state = decode_step(params, state, tokens, cfg)
+        return torch.argmax(logits, dim=-1).to(torch.int32), logits, new_state
+
+    return serve_step
+
+
+def make_prefill_step(cfg: ModelConfig, max_len: int, *, impl: str = "xla",
+                      ) -> Callable:
+    """prefill_step(params, tokens (B,S)) -> (first sampled token (B,),
+    decode state)."""
+
+    @torch.no_grad()
+    def prefill_step(params, tokens: torch.Tensor):
+        logits, state = prefill(params, tokens, cfg, max_len, impl=impl)
+        return torch.argmax(logits, dim=-1).to(torch.int32), state
+
+    return prefill_step
+
+
+# --------------------------------------------------------------------------
+# HeMT continuous batching across replicas
+# --------------------------------------------------------------------------
+
+@dataclass
+class DispatchRecord:
+    round: int
+    shares: Dict[str, int]
+    predicted_finish: Dict[str, float]
+
+
+class HeMTBatcher:
+    """Sizes per-replica request batches ∝ estimated decode throughput.
+
+    `observe(replica, tokens, seconds)` feeds the AR(1) estimator (§5.1 —
+    per job class, here per model). `dispatch(n)` splits n requests;
+    homogeneous mode (`mode='even'`) is the HomT-like baseline."""
+
+    def __init__(self, replicas: Sequence[str], *, alpha: float = 0.3,
+                 mode: str = "hemt", min_share: int = 0):
+        self.replicas = list(replicas)
+        self.estimator = ARSpeedEstimator(alpha=alpha)
+        self.mode = mode
+        self.min_share = min_share
+        self.log: List[DispatchRecord] = []
+        self._round = 0
+
+    def observe(self, replica: str, tokens: int, seconds: float) -> None:
+        if tokens > 0 and seconds > 0:
+            self.estimator.observe(replica, tokens, seconds)
+
+    def dispatch(self, n_requests: int) -> Dict[str, int]:
+        n = len(self.replicas)
+        if self.mode == "even" or not self.estimator.known():
+            shares = even_split(n_requests, n)
+        else:
+            speeds = self.estimator.speeds(self.replicas)
+            shares = proportional_split(n_requests, speeds,
+                                        min_share=self.min_share)
+        speeds = self.estimator.speeds(self.replicas)
+        pred = {r: (s / v if v > 0 else float("inf"))
+                for r, s, v in zip(self.replicas, shares, speeds)}
+        out = dict(zip(self.replicas, shares))
+        self.log.append(DispatchRecord(self._round, out, pred))
+        self._round += 1
+        return out
+
+    def resize(self, replicas: Sequence[str]) -> None:
+        gone = set(self.replicas) - set(replicas)
+        for g in gone:
+            self.estimator.forget(g)
+        self.replicas = list(replicas)
+
+    def straggling(self, factor: float = 2.0) -> List[str]:
+        """Replicas whose estimated speed has fallen ``factor``x below
+        the median estimate — the serving-side speculation trigger."""
+        if factor < 1.0:
+            raise ValueError("straggler factor must be >= 1.0")
+        if not self.estimator.known():
+            return []
+        speeds = self.estimator.speeds(self.replicas)
+        ordered = sorted(speeds)
+        mid = len(ordered) // 2
+        median = ordered[mid] if len(ordered) % 2 else \
+            0.5 * (ordered[mid - 1] + ordered[mid])
+        return [r for r, v in zip(self.replicas, speeds)
+                if v * factor < median]
+
+    def predicted_sync_delay(self, shares: Dict[str, int]) -> float:
+        speeds = dict(zip(self.replicas, self.estimator.speeds(self.replicas)))
+        times = [shares[r] / speeds[r] for r in self.replicas
+                 if shares.get(r, 0) > 0]
+        return (max(times) - min(times)) if times else 0.0

@@ -128,3 +128,9 @@ settings.register_profile(
     "chaos", max_examples=200, deadline=None,
     suppress_health_check=[HealthCheck.too_slow])
 settings.load_profile(os.environ.get("HYPOTHESIS_PROFILE", "ci"))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips without one, run on the "
+                   "card with -m gpu")
