@@ -1,22 +1,24 @@
 #!/usr/bin/env python3
 """Device timeline of the PyTorch port's serving steps on one CUDA card.
 
-Serves full-width, full-depth granite-3-8b (random weights from a seed) as
-``chip_smoke.py`` does and profiles two windows with ``torch.profiler``:
-one prefill of the largest replica share (10 prompts of 1024 tokens,
-``impl="pallas"``) and the 8 decode steps that follow it. For each window
-it prints one JSON line: the host wall time with and without the profiler
-(both end in ``torch.cuda.synchronize()``), the device busy time (the union
-of the kernel and copy intervals on the card), the busy share of the
-profiled wall time, and device time by kind (the flash-attention kernel,
-matrix products, the rest) and by kernel name.
+Serves a full-width, full-depth model (granite-3-8b, or mamba2-2.7b with
+``--arch``; random weights from a seed) as ``chip_smoke.py`` does and
+profiles two windows with ``torch.profiler``: one prefill of the largest
+replica share (10 prompts of 1024 tokens, ``impl="pallas"``) and the 8
+decode steps that follow it. For each window it prints one JSON line: the
+host wall time with and without the profiler (both end in
+``torch.cuda.synchronize()``), the device busy time (the union of the
+kernel and copy intervals on the card), the busy share of the profiled
+wall time, and device time by kind (the port's kernels by name, matrix
+products, the rest) and by kernel name.
 
 Run from the repo root on a machine with one card:
 
-    python3 benchmarks/profile_torch_serving.py
+    python3 benchmarks/profile_torch_serving.py [--arch mamba2-2.7b]
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -28,7 +30,6 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
 SEED = 0
-ARCH = "granite-3-8b"
 BATCH = 10
 PROMPT_LEN = 1024
 DECODE_STEPS = 8
@@ -39,6 +40,8 @@ TOP = 12
 def kind(name: str) -> str:
     if "flash_fwd_kernel" in name:
         return "flash_attention"
+    if "ssd_scan_kernel" in name:
+        return "ssd_scan"
     # cuBLAS(Lt) names its kernels nvjet_*, *gemm*, *gemv*, splitKreduce_*
     if any(s in name.lower() for s in ("nvjet", "gemm", "gemv", "splitk", "xmma", "cutlass")):
         return "matmul"
@@ -92,6 +95,9 @@ def window(torch, name: str, fn, steps: int) -> dict:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="granite-3-8b", choices=["granite-3-8b", "mamba2-2.7b"])
+    args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -105,7 +111,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     dev = torch.device("cuda")
-    cfg = get_config(ARCH)
+    cfg = get_config(args.arch)
     params = init_params(cfg, SEED, device=dev)
     prefill_step = make_prefill_step(cfg, MAX_LEN, impl="pallas")
     serve_step = make_serve_step(cfg)
@@ -125,7 +131,9 @@ def main() -> int:
 
     def decode():
         tok, st = box["tok"], box["state"]
-        st["length"] = PROMPT_LEN                     # rewind: same cache slots
+        # rewind: the same KV cache slots; an SSM state goes on from where it
+        # is, which costs the same work
+        st["length"] = PROMPT_LEN
         for _ in range(DECODE_STEPS):
             tok, _, st = serve_step(params, st, tok)
 

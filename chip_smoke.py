@@ -8,15 +8,22 @@ Run from the repo root on a machine with one CUDA card (an H100):
 Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. device  — card name and count, torch and CUDA versions, power limit;
-2. build   — nvcc builds every kernel of the path for sm_90a from the
-             sources in the checkout; the -Xptxas -v report is printed;
+2. build   — nvcc builds every kernel of the paths for sm_90a from the
+             sources in the checkout, all at once; the -Xptxas -v report
+             is printed;
 3. kernel  — each kernel against its plain PyTorch version on the card, at
              the reference's sweep shapes and at the serving shape, timed
-             with CUDA events beside the plain version and the library call;
-4. serve   — full-width, full-depth granite-3-8b with random weights from a
-             seed, served for 3 HeMT-dispatched rounds over replicas
-             1.0,1.0,0.4 through ``make_prefill_step(impl="pallas")`` and
-             ``make_serve_step``, with the kernel's launch count checked;
+             with CUDA events beside the plain version and the library call
+             (flash_attention, then ssd_scan, which also runs one long
+             prompt's shape);
+4. serve   — full-width, full-depth granite-3-8b, then mamba2-2.7b, with
+             random weights from a seed, each served for 3 HeMT-dispatched
+             rounds over replicas 1.0,1.0,0.4 through
+             ``make_prefill_step(impl="pallas")`` and ``make_serve_step``.
+             Every kernel's count is set to 0 just before a model's rounds
+             and read just after: its own kernel launched once per layer
+             and prefill, the other kernel never. Then pallas against xla
+             prefill logits (mamba2 also on one 8192-token prompt);
 5. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -25,10 +32,12 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -37,16 +46,20 @@ sys.path.insert(0, str(ROOT / "src"))
 SEED = 0
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12      # tensor cores on fp32 operands
 PEAK_FP32_FLOPS = 67e12       # CUDA cores, outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
 
+KERNELS = ("flash_attention", "ssd_scan")
 ARCH = "granite-3-8b"
+SSM_ARCH = "mamba2-2.7b"
 REPLICAS = (1.0, 1.0, 0.4)
 ROUNDS = 3
 REQUESTS = 24
 PROMPT_LEN = 1024
 GEN_LEN = 16
 MAX_LEN = PROMPT_LEN + GEN_LEN
+LONG_PROMPT_LEN = 8192        # one long prompt: mamba2's xla side scans chunks there
 BASE_TOKEN_RATE = 100.0       # virtual decode tokens/s of a speed-1.0 replica
 
 # the reference sweep (tests/test_kernels.py) and the serving shape
@@ -61,6 +74,26 @@ RTOL = 1e-2
 # path rounds probabilities to bf16 before PV, the kernel keeps them fp32;
 # a 40-layer bf16 CPU probe at reduced width showed 2.0e-2
 PREFILL_REL_TOL = 5e-2
+
+# ssd_scan: (batch, S, H, P, G, N); the reference sweep's shapes
+# (tests/test_kernels.py), then B/C in bf16 over G in {1, 2, 4} and the
+# serving head and state sizes at a ragged S
+SSD_SWEEP = [((1, 64, 2, 16, 1, 8), "float32"), ((2, 96, 4, 8, 2, 16), "float32"),
+             ((1, 50, 4, 16, 4, 8), "float32")]
+SSD_SWEEP += [((2, 96, 8, 16, g, 16), "bfloat16") for g in (1, 2, 4)]
+SSD_SWEEP += [((2, 200, 8, 64, g, 128), "bfloat16") for g in (1, 4)]
+SSD_SERVE_SHAPE = (10, 1024, 80, 64, 1, 128)   # the largest share's prefill
+SSD_LONG_SHAPE = (1, 8192, 80, 64, 1, 128)     # one long prompt
+# the reference sweep's tolerance: chunked against sequential sums in fp32
+SSD_ATOL = 2e-3
+SSD_NO_LIBRARY = "no single PyTorch call computes a chunked SSD scan"
+# mamba2 pallas vs xla prefill logits: checked on an fp32 copy of the same
+# random weights, where the two paths differ only in summation order. In
+# bf16 the paths round y at different places and random weights amplify
+# that with depth, as much in the JAX package's own two paths
+# (tests/test_torch_ssm.py::test_bf16_path_gap_is_the_references_own), so
+# the bf16 gap is reported, not checked.
+SSM_PREFILL_REL_TOL = 5e-2
 
 
 def emit(obj) -> None:
@@ -107,7 +140,7 @@ def check_close(torch, got, want, atol: float, rtol: float, what: str) -> float:
     return float(diff.max())
 
 
-def phase_kernel(torch, F, ops, fa, ref):
+def phase_flash_kernel(torch, F, ops, fa, ref):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -177,9 +210,165 @@ def phase_kernel(torch, F, ops, fa, ref):
     return row
 
 
-def phase_serve(torch, fa, cfg, dev):
-    from repro_torch.configs import padded_vocab_size
+def ssd_inputs(torch, gen, shape, bc_dtype, with_init, a_max):
+    """x, dt, a_log, B, C, init on the card, scaled as the reference sweep
+    draws them; x and B/C in ``bc_dtype``."""
+    bsz, s, h, p, g, n = shape
+    dev = torch.device("cuda")
+
+    def randn(*size):
+        return torch.randn(size, generator=gen, device=dev)
+
+    x = (randn(bsz, s, h, p) * 0.5).to(bc_dtype)
+    dt = torch.nn.functional.softplus(randn(bsz, s, h))
+    a_log = torch.log(torch.linspace(1.0, a_max, h, device=dev))
+    B = (randn(bsz, s, g, n) * 0.3).to(bc_dtype)
+    C = (randn(bsz, s, g, n) * 0.3).to(bc_dtype)
+    init = randn(bsz, h, p, n) * 0.1 if with_init else None
+    return x, dt, a_log, B, C, init
+
+
+def ssd_plan(ssd, shape):
+    bsz, _, h, p, _, n = shape
+    return ssd.plan(bsz, h, p, n)
+
+
+def ssd_work(shape, chunk):
+    """Operations and bytes one call needs at ``shape`` with B/C in bf16:
+    the causal half of the intra-chunk products at the kernel's chunk
+    length, the state products, and each input read and output written
+    once in fp32 (B/C in bf16)."""
+    bsz, s, h, p, g, n = shape
+    nc = -(-s // chunk)
+    per_chunk = chunk * (chunk + 1) // 2 * (n + p) * 2 + 2 * chunk * p * n * 2
+    flops = bsz * h * nc * per_chunk
+    nbytes = (4 * bsz * s * h * p * 2          # xdt in, y out
+              + 4 * bsz * s * h                # dta
+              + 2 * bsz * s * g * n * 2        # B, C
+              + 4 * bsz * h * p * n)           # final state
+    return flops, nbytes
+
+
+def phase_ssd_kernel(torch, ops, ssd, ref):
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    err, cases = 0.0, 0
+    for shape, bc_name in SSD_SWEEP:
+        for with_init in (False, True):
+            x, dt, a_log, B, C, init = ssd_inputs(torch, gen, shape, dtypes[bc_name],
+                                                  with_init, 8.0)
+            x = x.float()
+            got_y, got_f = ops.ssd_scan(x, dt, a_log, B, C, chunk=16, init_state=init)
+            want_y, want_f = ref.ssd_scan_ref(x, dt, a_log, B, C, init_state=init)
+            what = f"ssd sweep {shape} B/C {bc_name} init={with_init}"
+            err = max(err, check_close(torch, got_y, want_y, SSD_ATOL, 0.0, what + " y"),
+                      check_close(torch, got_f, want_f, SSD_ATOL, 0.0, what + " state"))
+            cases += 1
+    torch.cuda.synchronize()
+    emit({"phase": "kernel_sweep", "kernel": "ssd_scan", "cases": cases,
+          "max_abs_err": err, "atol": SSD_ATOL})
+
+    # the serving shape and one long prompt, as the model calls the kernel:
+    # x and B/C in bf16, a_log = log(linspace(1, 16, H)); the raw fp32
+    # output against the fp32 plain version on the same inputs
+    rows = {}
+    for name, shape in (("serving", SSD_SERVE_SHAPE), ("long", SSD_LONG_SHAPE)):
+        bsz, s, h, p, g, n = shape
+        x, dt, a_log, B, C, _ = ssd_inputs(torch, gen, shape, torch.bfloat16, False, 16.0)
+        a = -torch.exp(a_log)
+        xdt, dta = x.float() * dt[..., None], dt * a
+        got_y, got_f = ssd.ssd_scan(xdt, dta, B, C)
+        want_y, want_f = ref.ssd_scan_ref(x.float(), dt, a_log, B, C)
+        err = max(check_close(torch, got_y, want_y, SSD_ATOL, 0.0, f"ssd {name} y"),
+                  check_close(torch, got_f, want_f, SSD_ATOL, 0.0, f"ssd {name} state"))
+        del got_y, got_f, want_y, want_f
+        ms = cuda_ms(torch, lambda: ssd.ssd_scan(xdt, dta, B, C), iters=20)
+        plain_ms = cuda_ms(torch, lambda: ref.ssd_scan_ref(x.float(), dt, a_log, B, C),
+                           iters=2, warmup=1)
+        plan = ssd_plan(ssd, shape)
+        flops, nbytes = ssd_work(shape, plan["chunk"])
+        flops_ms = flops / PEAK_TF32_FLOPS * 1e3
+        bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
+        bound_ms = max(flops_ms, bytes_ms)
+        rows[name] = {"name": "ssd_scan", "route": "cuda",
+                      "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                      "replaces": "src/repro/kernels/ssd_scan.py:75",
+                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms,
+                      "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
+                      "library_ms": None}
+        emit({"phase": f"kernel_{name}_shape", "kernel": "ssd_scan",
+              "shape": {"x": [bsz, s, h, p], "B": [bsz, s, g, n]}, "bc_dtype": "bfloat16",
+              "plan": plan, "flops": flops, "bytes": nbytes,
+              "flops_bound_ms_tf32": flops_ms, "bytes_bound_ms": bytes_ms,
+              "fp32_core_bound_ms": flops / PEAK_FP32_FLOPS * 1e3,
+              "achieved_tflops": flops / (ms * 1e-3) / 1e12,
+              "achieved_tb_per_s": nbytes / (ms * 1e-3) / 1e12,
+              "roofline_share": bound_ms / ms, "library": SSD_NO_LIBRARY,
+              **rows[name]})
+        del x, dt, B, C, xdt, dta
+    return rows["serving"]
+
+
+def prefill_gap(torch, prefill, params, prompts, cfg, max_len):
+    """Relative L2 and top-1 agreement of pallas against xla prefill logits
+    over the real vocab (these launches are not counted)."""
+    with torch.no_grad():
+        lp, _ = prefill(params, prompts, cfg, max_len, impl="pallas")
+        lx, _ = prefill(params, prompts, cfg, max_len, impl="xla")
+    lp, lx = lp[:, :cfg.vocab_size].float(), lx[:, :cfg.vocab_size].float()
+    if not (bool(torch.isfinite(lp).all()) and bool(torch.isfinite(lx).all())):
+        raise AssertionError("non-finite prefill logits")
+    return {"rel_l2": float((lp - lx).norm() / lx.norm()),
+            "max_abs": float((lp - lx).abs().max()),
+            "top1_agree": float((lp.argmax(-1) == lx.argmax(-1)).float().mean()),
+            "batch": int(prompts.shape[0]), "prompt_len": int(prompts.shape[1])}
+
+
+def compare_granite(torch, cfg, params, prompts, dev):
+    from repro_torch.models.model import prefill
+
+    gap = prefill_gap(torch, prefill, params, prompts, cfg, MAX_LEN)
+    if gap["rel_l2"] > PREFILL_REL_TOL:
+        raise AssertionError(f"pallas vs xla prefill logits: rel L2 {gap['rel_l2']} > "
+                             f"{PREFILL_REL_TOL}")
+    return {"pallas_vs_xla_rel_l2": gap["rel_l2"], "pallas_vs_xla_max_abs": gap["max_abs"],
+            "pallas_vs_xla_top1_agree": gap["top1_agree"], "rel_tol": PREFILL_REL_TOL,
+            "compare_batch": gap["batch"]}
+
+
+def compare_mamba(torch, cfg, params, prompts, dev):
+    """pallas vs xla at 1024 tokens (one replica's batch) and on one 8192-
+    token prompt, whose xla side scans chunks (S >= SSD_SCAN_THRESHOLD):
+    checked on an fp32 copy of the weights, reported on the bf16 ones."""
     from repro_torch.models.model import init_params, prefill
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    long_prompt = torch.randint(0, cfg.vocab_size, (1, LONG_PROMPT_LEN), generator=gen,
+                                device=dev)
+    out = {"rel_tol_fp32": SSM_PREFILL_REL_TOL}
+    cases = (("1024", prompts, MAX_LEN), ("8192", long_prompt, LONG_PROMPT_LEN))
+    for name, toks, max_len in cases:
+        out[f"bf16_{name}"] = prefill_gap(torch, prefill, params, toks, cfg, max_len)
+    params32 = init_params(cfg, SEED, device=dev, dtype=torch.float32)
+    for name, toks, max_len in cases:
+        gap = prefill_gap(torch, prefill, params32, toks, cfg, max_len)
+        if gap["rel_l2"] > SSM_PREFILL_REL_TOL:
+            raise AssertionError(f"fp32 pallas vs xla prefill logits at {name} tokens: "
+                                 f"rel L2 {gap['rel_l2']} > {SSM_PREFILL_REL_TOL}")
+        out[f"fp32_{name}"] = gap
+    return out
+
+
+def phase_serve(torch, counters, cfg, dev, kernel, compare):
+    """Serve ``cfg`` for ROUNDS rounds; ``kernel`` must launch once per
+    layer and prefill call, the other counters not at all."""
+    from repro_torch.configs import padded_vocab_size
+    from repro_torch.models.model import init_params
     from repro_torch.runtime.serve_loop import (HeMTBatcher, make_prefill_step,
                                                 make_serve_step)
 
@@ -190,6 +379,7 @@ def phase_serve(torch, fa, cfg, dev):
     emit({"phase": "serve_init", "arch": cfg.name, "n_layers": cfg.n_layers,
           "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
           "padded_vocab": padded_vocab_size(cfg), "params": n_params,
+          "ssm": None if cfg.ssm is None else dataclasses.asdict(cfg.ssm),
           "dtype": cfg.dtype, "init_s": time.perf_counter() - t0, "depth_cut": None})
 
     prefill_step = make_prefill_step(cfg, MAX_LEN, impl="pallas")
@@ -200,7 +390,8 @@ def phase_serve(torch, fa, cfg, dev):
     gen.manual_seed(SEED + 1)
     torch.cuda.reset_peak_memory_stats()
 
-    fa.launches = 0
+    for module in counters.values():
+        module.launches = 0
     prefill_calls = 0
     compare_prompts = None
     for rnd in range(ROUNDS):
@@ -213,7 +404,7 @@ def phase_serve(torch, fa, cfg, dev):
                 continue
             prompts = torch.randint(0, cfg.vocab_size, (b, PROMPT_LEN),
                                     generator=gen, device=dev)
-            before = fa.launches
+            before = counters[kernel].launches
             torch.cuda.synchronize()
             t = time.perf_counter()
             tok, state = prefill_step(params, prompts)
@@ -221,9 +412,10 @@ def phase_serve(torch, fa, cfg, dev):
             torch.cuda.synchronize()
             prefill_ms = (time.perf_counter() - t) * 1e3
             prefill_calls += 1
-            if fa.launches - before != cfg.n_layers:
-                raise AssertionError(f"prefill launched flash_attention "
-                                     f"{fa.launches - before} times, want {cfg.n_layers}")
+            if counters[kernel].launches - before != cfg.n_layers:
+                raise AssertionError(f"prefill launched {kernel} "
+                                     f"{counters[kernel].launches - before} times, "
+                                     f"want {cfg.n_layers}")
             tokens = [tok]
             finite = torch.ones((), dtype=torch.bool, device=dev)
             t = time.perf_counter()
@@ -258,31 +450,19 @@ def phase_serve(torch, fa, cfg, dev):
         emit({"phase": "serve_round", "round": rnd, "shares": shares,
               "virtual_makespan_s": makespan, "virtual_idle_s": idle,
               "card": measured})
-    launches = fa.launches
-    if launches != cfg.n_layers * prefill_calls:
-        raise AssertionError(f"{launches} flash_attention launches for "
-                             f"{prefill_calls} prefill calls")
+    launches = {name: module.launches for name, module in counters.items()}
+    want = {name: cfg.n_layers * prefill_calls if name == kernel else 0
+            for name in counters}
+    if launches != want:
+        raise AssertionError(f"{cfg.name}: launches {launches} for {prefill_calls} "
+                             f"prefill calls, want {want}")
     peak = torch.cuda.max_memory_allocated()
 
-    # pallas vs xla prefill logits on one replica's batch (not counted)
-    with torch.no_grad():
-        lp, _ = prefill(params, compare_prompts, cfg, MAX_LEN, impl="pallas")
-        lx, _ = prefill(params, compare_prompts, cfg, MAX_LEN, impl="xla")
-    lp, lx = lp[:, :cfg.vocab_size].float(), lx[:, :cfg.vocab_size].float()
-    if not (bool(torch.isfinite(lp).all()) and bool(torch.isfinite(lx).all())):
-        raise AssertionError("non-finite prefill logits")
-    rel = float((lp - lx).norm() / lx.norm())
-    top1 = float((lp.argmax(-1) == lx.argmax(-1)).float().mean())
-    if rel > PREFILL_REL_TOL:
-        raise AssertionError(f"pallas vs xla prefill logits: rel L2 {rel} > "
-                             f"{PREFILL_REL_TOL}")
-    emit({"phase": "serve_check", "prefill_calls": prefill_calls,
-          "flash_launches": launches, "launches_per_prefill": cfg.n_layers,
+    emit({"phase": "serve_check", "arch": cfg.name, "prefill_calls": prefill_calls,
+          "launches": launches, "launches_per_prefill": cfg.n_layers,
           "max_memory_allocated_bytes": peak,
-          "pallas_vs_xla_rel_l2": rel, "pallas_vs_xla_max_abs": float((lp - lx).abs().max()),
-          "pallas_vs_xla_top1_agree": top1, "rel_tol": PREFILL_REL_TOL,
-          "compare_batch": int(compare_prompts.shape[0])})
-    return launches
+          **compare(torch, cfg, params, compare_prompts, dev)})
+    return launches[kernel]
 
 
 def main() -> int:
@@ -296,31 +476,46 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi_line()
-    name = torch.cuda.get_device_name(0)
+    card = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    emit({"phase": "device", "name": name, "count": count,
+    emit({"phase": "device", "name": card, "count": count,
           "capability": list(torch.cuda.get_device_capability(0)),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "nvidia_smi": smi})
 
     t = time.perf_counter()
-    built = build.build("flash_attention")
-    emit({"phase": "build", "kernel": "flash_attention",
-          "library": str(built.path.relative_to(ROOT)), "build_s": time.perf_counter() - t,
-          "smem_bytes_by_head_dim": {d: fa.smem_bytes(d) for d in (16, 32, 64, 128)},
-          "log": [ln for ln in built.log.splitlines() if ln.strip()]})
+    with ThreadPoolExecutor(len(KERNELS)) as pool:   # one nvcc per source, together
+        built = dict(zip(KERNELS, pool.map(build.build, KERNELS)))
+    build_s = time.perf_counter() - t
+    smem = {"flash_attention": {"smem_bytes_by_head_dim":
+                                {d: fa.smem_bytes(d) for d in (16, 32, 64, 128)}},
+            "ssd_scan": {"plan_serving": ssd_plan(ssd, SSD_SERVE_SHAPE),
+                         "plan_long": ssd_plan(ssd, SSD_LONG_SHAPE)}}
+    for kernel in KERNELS:
+        emit({"phase": "build", "kernel": kernel,
+              "library": str(built[kernel].path.relative_to(ROOT)), "build_s": build_s,
+              **smem[kernel],
+              "log": [ln for ln in built[kernel].log.splitlines() if ln.strip()]})
 
-    row = phase_kernel(torch, F, ops, fa, ref)
-    row["launches"] = phase_serve(torch, fa, get_config(ARCH), torch.device("cuda"))
+    dev = torch.device("cuda")
+    counters = {"flash_attention": fa, "ssd_scan": ssd}
+    rows = {"flash_attention": phase_flash_kernel(torch, F, ops, fa, ref),
+            "ssd_scan": phase_ssd_kernel(torch, ops, ssd, ref)}
+    rows["flash_attention"]["launches"] = phase_serve(
+        torch, counters, get_config(ARCH), dev, "flash_attention", compare_granite)
+    torch.cuda.empty_cache()
+    rows["ssd_scan"]["launches"] = phase_serve(
+        torch, counters, get_config(SSM_ARCH), dev, "ssd_scan", compare_mamba)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: row[k] for k in keys}]})
+    emit({"kernels": [{k: rows[kernel][k] for k in keys} for kernel in KERNELS]})
     print(smi, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": card, "count": count}})
     return 0
 
 

@@ -19,6 +19,7 @@ __all__ = [
 # arch id -> module name
 _ARCH_MODULES: Dict[str, str] = {
     "granite-3-8b": "granite_3_8b",
+    "mamba2-2.7b": "mamba2_2_7b",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

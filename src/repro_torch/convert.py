@@ -2,14 +2,16 @@
 
 The reference keeps parameters as nested dicts whose stack leaves carry a
 leading ``(n_groups,)`` axis under ``stack/sub{j}/...`` (layer
-``g * period + j`` is entry ``g`` of ``sub{j}``). Leaves here are numpy
-arrays; bf16 leaves arrive either as ml_dtypes ``bfloat16`` arrays or as
-their ``uint16`` bit view (the reference checkpointer's npz convention)
-and move bit-exactly.
+``g * period + j`` is entry ``g`` of ``sub{j}``). A dict of leaves becomes
+an ``nn.ParameterDict``; one that also nests a dict (the SSM mixer's
+``gate_norm``) becomes a ``ParamTree``. Leaves here are numpy arrays; bf16
+leaves arrive either as ml_dtypes ``bfloat16`` arrays or as their
+``uint16`` bit view (the reference checkpointer's npz convention) and move
+bit-exactly.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Union
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -18,6 +20,7 @@ from torch import nn
 from repro_torch import devices
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
+from repro_torch.models.layers import ParamTree
 
 Tree = Dict[str, Any]
 
@@ -39,8 +42,24 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _params(tree: Tree, device: torch.device) -> nn.ParameterDict:
-    return nn.ParameterDict({k: _to_torch(a, device) for k, a in tree.items()})
+def _params(tree: Tree, device: torch.device,
+            index: Optional[int] = None) -> Union[nn.ParameterDict, ParamTree]:
+    """A module of ``tree``'s leaves, each sliced at ``index`` when given."""
+    def leaf(a):
+        return _to_torch(a if index is None else a[index], device)
+
+    if not any(isinstance(a, dict) for a in tree.values()):
+        return nn.ParameterDict({k: leaf(a) for k, a in tree.items()})
+    return ParamTree({k: _params(a, device, index) if isinstance(a, dict) else leaf(a)
+                      for k, a in tree.items()})
+
+
+def _stacked(mods) -> Tree:
+    """The same module of each layer in a group -> leaves stacked along a
+    leading axis, nested modules recursed into."""
+    return {k: _stacked([m[k] for m in mods]) if isinstance(mods[0][k], nn.Module)
+            else np.stack([_to_numpy(m[k]) for m in mods])
+            for k in mods[0].keys()}
 
 
 def from_jax_params(tree: Tree, cfg: ModelConfig, *,
@@ -55,9 +74,8 @@ def from_jax_params(tree: Tree, cfg: ModelConfig, *,
     for g in range(n_groups):
         for j in range(period):
             sub = tree["stack"][f"sub{j}"]
-            layers.append(nn.ModuleDict({
-                name: _params({k: a[g] for k, a in leaves.items()}, dev)
-                for name, leaves in sub.items()}))
+            layers.append(nn.ModuleDict({name: _params(leaves, dev, g)
+                                         for name, leaves in sub.items()}))
     model = nn.ModuleDict({"stack": nn.ModuleList(layers)})
     for key in ("embed", "final_norm", "unembed"):
         if key in tree:
@@ -72,11 +90,5 @@ def to_jax_layout(model: nn.ModuleDict, cfg: ModelConfig) -> Tree:
     tree: Tree = {key: {k: _to_numpy(t) for k, t in model[key].items()}
                   for key in ("embed", "final_norm", "unembed") if key in model}
     layers = list(model["stack"])
-    tree["stack"] = {
-        f"sub{j}": {
-            name: {k: np.stack([_to_numpy(layer[name][k])
-                                for layer in layers[j::period]])
-                   for k in layers[j][name].keys()}
-            for name in layers[j].keys()}
-        for j in range(period)}
+    tree["stack"] = {f"sub{j}": _stacked(layers[j::period]) for j in range(period)}
     return tree

@@ -1,12 +1,13 @@
 """Plain PyTorch versions of the port's kernels (the allclose references).
 
-``flash_attention_ref`` is ported from ``repro/kernels/ref.py``. The CPU
-path of ``ops.flash_attention`` runs it, and the card's kernel is held
-against it; nothing on the main path calls it when a card is present.
+``flash_attention_ref`` and ``ssd_scan_ref`` are ported from
+``repro/kernels/ref.py``. The CPU paths of ``ops.flash_attention`` and
+``ops.ssd_scan`` run them, and the card's kernels are held against them;
+nothing on the main path calls them when a card is present.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -40,3 +41,33 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", probs, v.float())
     return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                 B: torch.Tensor, C: torch.Tensor,
+                 init_state: Optional[torch.Tensor] = None,
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential (exact) SSD recurrence, the oracle.
+
+    x: (batch, S, H, P); dt: (batch, S, H); a_log: (H,);
+    B, C: (batch, S, G, N) with G | H (head h reads group h // (H/G)).
+    h_t = exp(dt_t a) h_{t-1} + dt_t B_t x_t^T ;  y_t = C_t h_t (no D skip).
+    Returns (y (batch,S,H,P) in x's dtype, final_state (batch,H,P,N) fp32).
+    """
+    bsz, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    a = -torch.exp(a_log.float())
+    bh = torch.repeat_interleave(B, rep, dim=2).float()
+    ch = torch.repeat_interleave(C, rep, dim=2).float()
+    xf, dtf = x.float(), dt.float()
+    st = (torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+          if init_state is None else init_state.float())
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dtf[:, t] * a)                                # (b,h)
+        st = st * decay[..., None, None] + torch.einsum(
+            "bhp,bhn->bhpn", xf[:, t] * dtf[:, t, :, None], bh[:, t])
+        ys.append(torch.einsum("bhpn,bhn->bhp", st, ch[:, t]))
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros((bsz, 0, h, p))
+    return y.to(x.dtype), st

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import math
 from functools import partial
-from typing import Mapping, Optional
+from typing import List, Mapping, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +23,29 @@ Params = Mapping[str, torch.Tensor]
 def _param(t: torch.Tensor) -> nn.Parameter:
     # serving weights are frozen; a training path turns requires_grad on
     return nn.Parameter(t, requires_grad=False)
+
+
+class ParamTree(nn.Module):
+    """Parameters and nested parameter dicts under the reference's leaf
+    names, indexed like its nested dicts (the SSM mixer's leaves sit beside
+    ``gate_norm/scale``): ``nn.ParameterDict`` holds only tensors and
+    ``nn.ModuleDict`` only modules."""
+
+    def __init__(self, entries: Mapping[str, Union[nn.Parameter, nn.Module]]):
+        super().__init__()
+        for key, value in entries.items():
+            if isinstance(value, nn.Module):
+                self.add_module(key, value)
+            else:
+                self.register_parameter(key, value)
+
+    def __getitem__(self, key: str):
+        if key in self._parameters:
+            return self._parameters[key]
+        return self._modules[key]
+
+    def keys(self) -> List[str]:
+        return [*self._parameters, *self._modules]
 
 
 # --------------------------------------------------------------------------

@@ -1,9 +1,11 @@
 """Top-level model: embeddings + decoder stack + tied head, prefill, decode.
 
-Port of ``repro/models/model.py`` for decoder-only attention archs. The
-parameters are an ``nn.ModuleDict`` with the reference's top-level keys
-(``embed``, ``stack``, ``final_norm``, optionally ``unembed``). The
-training loss waits for the training slice.
+Port of ``repro/models/model.py`` for decoder-only attention archs and
+pure SSM (Mamba2) archs. The parameters are an ``nn.ModuleDict`` with the
+reference's top-level keys (``embed``, ``stack``, ``final_norm``,
+optionally ``unembed``); the decode state holds one cache per layer, a KV
+ring buffer or an SSM ``{"conv", "state"}`` pair. The training loss waits
+for the training slice.
 """
 from __future__ import annotations
 

@@ -15,7 +15,7 @@ import torch
 from repro.configs import get_reduced as j_get_reduced
 from repro.models import model as jm
 from repro_torch import convert
-from repro_torch.configs import get_config, get_reduced
+from repro_torch.configs import SSMConfig, get_config, get_reduced
 from repro_torch.models import model as tm
 
 torch.set_num_threads(2)
@@ -149,10 +149,16 @@ def test_init_params_tree_matches_reference_shapes():
 
 
 def test_registry_serves_granite_only():
+    """The registry serves the ported archs, granite-3-8b and mamba2-2.7b,
+    with the reference's published sizes, and raises for the others."""
     cfg = get_config(ARCH)
     assert (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size) == (40, 4096, 12800, 49155)
+    ssm = get_config("mamba2-2.7b")
+    assert (ssm.n_layers, ssm.d_model, ssm.d_ff, ssm.vocab_size) == (64, 2560, 0, 50280)
+    assert (ssm.attention, ssm.ssm.state_dim, ssm.ssm.head_dim, ssm.ssm.chunk) == \
+        (None, 128, 64, 256)
     with pytest.raises(KeyError, match="not ported yet"):
-        get_config("mamba2-2.7b")
+        get_config("jamba-1.5-large-398b")
 
 
 def test_cuda_entry_points_raise_without_card():
@@ -170,6 +176,7 @@ def test_cuda_entry_points_raise_without_card():
                                       sliding_window=4, local_global=(5, 1))},
     {"encoder_layers": 2},
     {"attn_period": 2},
+    {"ssm": SSMConfig(state_dim=16, head_dim=16, chunk=16)},   # attention + SSM
 ])
 def test_unported_architecture_parts_raise(change):
     cfg = dataclasses.replace(get_reduced(ARCH), **change)
