@@ -12,10 +12,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              sources in the checkout, all at once; the -Xptxas -v report
              is printed;
 3. kernel  — each kernel against its plain PyTorch version on the card, at
-             the reference's sweep shapes and at the serving shape, timed
+             the reference's sweep shapes and at the path's shape, timed
              with CUDA events beside the plain version and the library call
              (flash_attention, then ssd_scan, which also runs one long
-             prompt's shape);
+             prompt's shape, then skewed_bucket, held exactly to the plain
+             version and to numpy's ``bucket_of`` and timed with a cold L2);
 4. serve   — full-width, full-depth granite-3-8b, then mamba2-2.7b, with
              random weights from a seed, each served for 3 HeMT-dispatched
              rounds over replicas 1.0,1.0,0.4 through
@@ -24,7 +25,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              and read just after: its own kernel launched once per layer
              and prefill, the other kernel never. Then pallas against xla
              prefill logits (mamba2 also on one 8192-token prompt);
-5. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+5. pagerank — paper Fig 18's PageRank on a 4,847,571-vertex graph with 14
+             out-edges per vertex (soc-LiveJournal1's vertex count), 100
+             iterations in each of the four modes of the demo, then a
+             10-iteration job, run under ``torch.profiler`` (device time by
+             kernel), against a float64 numpy oracle. Counts are set
+             to 0 before the phase: skewed_bucket launches once per job, the
+             other kernels never. The card's ownership map must equal
+             ``bucket_of`` on the host, HeMT's bucket share 1/1.4, and HeMT
+             must finish first (Fig 18's ordering);
+6. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Without a card, or run where ``src/repro_torch`` is missing, it exits
@@ -50,7 +60,7 @@ PEAK_TF32_FLOPS = 495e12      # tensor cores on fp32 operands
 PEAK_FP32_FLOPS = 67e12       # CUDA cores, outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
 
-KERNELS = ("flash_attention", "ssd_scan")
+KERNELS = ("flash_attention", "ssd_scan", "skewed_bucket")
 ARCH = "granite-3-8b"
 SSM_ARCH = "mamba2-2.7b"
 REPLICAS = (1.0, 1.0, 0.4)
@@ -95,6 +105,33 @@ SSD_NO_LIBRARY = "no single PyTorch call computes a chunked SSD scan"
 # the bf16 gap is reported, not checked.
 SSM_PREFILL_REL_TOL = 5e-2
 
+# skewed_bucket: the reference sweep (tests/test_kernels.py) at its
+# resolution, and the path's shape: PageRank's vertex ownership
+BUCKET_WEIGHTS = [[1.0, 0.4], [1.0, 1.0, 1.0], [3, 4, 4], [0.5, 0.3, 0.1, 0.1]]
+BUCKET_LENGTHS = [17, 1024, 5000]
+BUCKET_RESOLUTION = 997
+BUCKET_LIBRARY = ("torch.bucketize(torch.remainder(h, total), cum, right=True, "
+                  "out_int32=True)")
+L2_SCRUB_BYTES = 128 << 20     # written between timed calls: > the 50 MB L2
+
+# PageRank (paper Fig 18) at soc-LiveJournal1's vertex count (SNAP: 4,847,571
+# vertices, 68,993,773 edges) with uniform random out-edges, 14 per vertex
+PR_VERTICES = 4_847_571
+PR_AVG_DEG = 14
+PR_ITERS = 100
+PR_CHECK_ITERS = 10
+PR_MODES = (("hemt", {"weights": [1.0, 0.4]}), ("even", {}),
+            ("homt-16", {"n_tasks": 16}), ("homt-64", {"n_tasks": 64}))
+PR_SPEEDS = (("full-core", 1.0), ("0.4-core", 0.4))
+PR_OVERHEAD = 0.15
+PR_OWNER_RESOLUTION = 1 << 12
+# float32 ranks (atomic sums on the card) against the float64 oracle: the
+# CPU port measures 1.4e-7 at 500 vertices and 1.7e-7 at 200,000, flat in n
+# (tests/test_torch_pagerank.py::test_pagerank_accepts_tensors_and_matches_float64_oracle)
+PR_REL_L2_TOL = 1e-5
+PR_SHARE_TOL = 0.02            # tests/test_workloads.py: hemt share vs 1/1.4
+PR_SUM_TOL = 0.2               # tests/test_workloads.py: ranks sum to ~1
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -120,6 +157,23 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_ms_cold(torch, fn, iters: int, scrub) -> float:
+    """Mean device time of ``fn`` with the L2 cache scrubbed before each call
+    (the scrub is outside the timed window)."""
+    fn()
+    pairs = []
+    for _ in range(iters):
+        scrub.add_(1)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
 def visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
@@ -465,6 +519,203 @@ def phase_serve(torch, counters, cfg, dev, kernel, compare):
     return launches[kernel]
 
 
+def phase_bucket_kernel(torch, np, ops, sb, ref, pr, skewed_hash):
+    """skewed_bucket against the plain version on the card and numpy's
+    bucket_of, for exact equality; then timed at PageRank's shape."""
+    dev = torch.device("cuda")
+    bucket_of = skewed_hash.bucket_of
+    rng = np.random.default_rng(SEED + 4)
+
+    def check(hashes, caps, what):
+        h = torch.from_numpy(hashes).to(dev)
+        c = torch.from_numpy(np.asarray(caps, np.int32)).to(dev)
+        got = ops.skewed_bucket(h, c)
+        want = ref.skewed_bucket_ref(h, c)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"skewed_bucket {what}: "
+                                 f"{int((got != want).sum())} buckets differ "
+                                 "from the plain version")
+        if not np.array_equal(got.cpu().numpy(), bucket_of(hashes, caps)):
+            raise AssertionError(f"skewed_bucket {what}: differs from bucket_of")
+        return int((got - want).abs().max()) if got.numel() else 0
+
+    err, cases = 0, 0
+    for weights in BUCKET_WEIGHTS:
+        caps = skewed_hash.integer_capacities(weights, resolution=BUCKET_RESOLUTION)
+        for t in BUCKET_LENGTHS:
+            hashes = rng.integers(0, 2**30, t).astype(np.int32)
+            err = max(err, check(hashes, caps, f"sweep {weights} T={t}"))
+            cases += 1
+    i32 = np.iinfo(np.int32)
+    extreme = np.concatenate([
+        np.asarray([i32.min, i32.min + 1, i32.max, i32.max - 1, -1, 0, 1,
+                    -BUCKET_RESOLUTION, BUCKET_RESOLUTION], np.int32),
+        rng.integers(i32.min, i32.max, 5000, endpoint=True).astype(np.int32)])
+    for caps in ([700, 297], [0, 500, 0, 497], [997, 0]):   # zero-capacity buckets
+        err = max(err, check(extreme, np.asarray(caps), f"extreme hashes caps={caps}"))
+        cases += 1
+    emit({"phase": "kernel_sweep", "kernel": "skewed_bucket", "cases": cases,
+          "max_abs_err": err, "tolerance": "exact"})
+
+    # the path's shape: PageRank's vertex hashes, HeMT capacities [1.0, 0.4]
+    hashes = pr.vertex_hashes(PR_VERTICES)
+    caps = skewed_hash.integer_capacities([1.0, 0.4], PR_OWNER_RESOLUTION)
+    err = max(err, check(hashes, caps, "path shape"))
+    h = torch.from_numpy(hashes).to(dev)
+    c = torch.from_numpy(caps.astype(np.int32)).to(dev)
+    cum = torch.cumsum(c, 0, dtype=torch.int32)
+    total = cum[-1]
+    scrub = torch.empty(L2_SCRUB_BYTES // 4, dtype=torch.float32, device=dev)
+    # ms: the kernel's launch on ready prefix sums; wrapper_ms adds the
+    # host-side check of the total (a read-back of the E capacities)
+    ms = cuda_ms_cold(torch, lambda: sb.launch(h, cum), 20, scrub)
+    warm_ms = cuda_ms(torch, lambda: sb.launch(h, cum), iters=20)
+    wrapper_ms = cuda_ms_cold(torch, lambda: sb.skewed_bucket(h, c), 20, scrub)
+    plain_ms = cuda_ms_cold(torch, lambda: ref.skewed_bucket_ref(h, c), 20, scrub)
+
+    def library():
+        return torch.bucketize(torch.remainder(h, total), cum, right=True, out_int32=True)
+
+    library_ms = cuda_ms_cold(torch, library, 20, scrub)
+    lib_out = library()
+    if not torch.equal(lib_out, sb.launch(h, cum)):
+        raise AssertionError("skewed_bucket: the library call disagrees")
+    del scrub, lib_out
+    t, e = h.numel(), c.numel()
+    nbytes = 4 * t + 4 * e + 4 * t          # hashes and cum in, buckets out
+    bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    row = {"name": "skewed_bucket", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/skewed_bucket.cu",
+           "replaces": "src/repro/kernels/skewed_bucket.py:29",
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bytes_ms, "bound_by": "bytes", "library_ms": library_ms}
+    emit({"phase": "kernel_path_shape", "kernel": "skewed_bucket",
+          "shape": {"hashes": [t], "capacities": [e]}, "capacities": caps.tolist(),
+          "bytes": nbytes, "compares": t * e, "timing": "L2 scrubbed before each call",
+          "warm_l2_ms": warm_ms, "wrapper_ms": wrapper_ms,
+          "achieved_tb_per_s": nbytes / (ms * 1e-3) / 1e12,
+          "roofline_share": bytes_ms / ms, "library": BUCKET_LIBRARY, **row})
+    return row
+
+
+def phase_pagerank(torch, np, counters, pr, skewed_hash, sim):
+    """Fig 18 at scale on the card: the four modes of the demo, 100
+    iterations each, then a 10-iteration job against a float64 oracle."""
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    src, dst = pr.random_graph(PR_VERTICES, PR_AVG_DEG, seed=SEED)
+    gen_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    src_d, dst_d = torch.from_numpy(src).to(dev), torch.from_numpy(dst).to(dev)
+    torch.cuda.synchronize()
+    emit({"phase": "pagerank_graph", "vertices": PR_VERTICES, "edges": int(src.size),
+          "avg_out_degree": PR_AVG_DEG, "seed": SEED, "generate_s": gen_s,
+          "edge_bytes_on_card": src_d.numel() * 8 * 2,
+          "source": "soc-LiveJournal1's vertex count (SNAP); uniform random "
+                    "out-edges, not its degree distribution"})
+    hashes = pr.vertex_hashes(PR_VERTICES)
+    want_owner = {
+        "hemt": skewed_hash.bucket_of(hashes, skewed_hash.integer_capacities(
+            [1.0, 0.4], PR_OWNER_RESOLUTION)),
+        "even": skewed_hash.bucket_of(hashes, skewed_hash.integer_capacities(
+            [1.0, 1.0], PR_OWNER_RESOLUTION))}
+
+    def nodes():
+        return [sim.SimNode.constant(name, speed, overhead=PR_OVERHEAD)
+                for name, speed in PR_SPEEDS]
+
+    oracle = pr.pagerank_reference(src_d, dst_d, PR_VERTICES, PR_ITERS, device=dev)
+    for module in counters.values():
+        module.launches = 0
+    finish, ms_iter = {}, {}
+    for mode, kw in PR_MODES:
+        kind = mode.split("-")[0]
+        before = counters["skewed_bucket"].launches
+        job = pr.PageRankJob(src_d, dst_d, PR_VERTICES, nodes(), mode=kind, device=dev, **kw)
+        job_launches = counters["skewed_bucket"].launches - before
+        if job_launches != 1:
+            raise AssertionError(f"pagerank {mode}: skewed_bucket launched "
+                                 f"{job_launches} times, want 1")
+        if not np.array_equal(job.owner, want_owner["hemt" if kind == "hemt" else "even"]):
+            raise AssertionError(f"pagerank {mode}: the card's owner differs from bucket_of")
+        events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        t0 = time.perf_counter()
+        ranks = job.run(PR_ITERS, events=events)
+        run_s = time.perf_counter() - t0
+        ms_iter[mode] = events[0].elapsed_time(events[1]) / PR_ITERS
+        finish[mode] = job.total_time()
+        owned = np.bincount(job.owner, minlength=len(PR_SPEEDS))
+        share = float(owned[0] / owned.sum())
+        if kind == "hemt" and abs(share - 1.0 / 1.4) > PR_SHARE_TOL:
+            raise AssertionError(f"pagerank hemt: bucket share {share} not within "
+                                 f"{PR_SHARE_TOL} of 1/1.4")
+        if not np.isfinite(ranks).all() or abs(float(ranks.sum()) - 1.0) > PR_SUM_TOL:
+            raise AssertionError(f"pagerank {mode}: ranks not finite or sum "
+                                 f"{float(ranks.sum())} not within {PR_SUM_TOL} of 1")
+        rel = float(np.linalg.norm(ranks - oracle) / np.linalg.norm(oracle))
+        if rel > PR_REL_L2_TOL:
+            raise AssertionError(f"pagerank {mode}: ranks vs pagerank_reference "
+                                 f"rel L2 {rel} > {PR_REL_L2_TOL}")
+        emit({"phase": "pagerank_mode", "mode": mode, "iters": PR_ITERS,
+              "card_ms_per_iter": ms_iter[mode], "run_s": run_s,
+              "finish_s": finish[mode], "owned_vertices": owned.tolist(),
+              "bucket_share": share, "skewed_bucket_launches": job_launches,
+              "rank_err": float(np.max(np.abs(ranks - oracle))),
+              "rank_rel_l2_vs_reference": rel})
+        del job
+
+    # a separate short job against a float64 numpy oracle on the host,
+    # run under the profiler: device time by kernel
+    job = pr.PageRankJob(src_d, dst_d, PR_VERTICES, nodes(), mode="hemt",
+                         weights=[1.0, 0.4], device=dev)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = job.run(PR_CHECK_ITERS)
+        torch.cuda.synchronize()
+    del job
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, n = kernels.get(e.name, (0.0, 0))
+            kernels[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+    if not kernels:
+        raise AssertionError("pagerank: the profiler recorded no device activity")
+    emit({"phase": "pagerank_profile", "iters": PR_CHECK_ITERS,
+          "device_ms": sum(ms for ms, _ in kernels.values()),
+          "by_kernel": [[name[:100], ms, n] for name, (ms, n) in
+                        sorted(kernels.items(), key=lambda kv: -kv[1][0])]})
+    t0 = time.perf_counter()
+    deg = np.maximum(np.bincount(src, minlength=PR_VERTICES), 1).astype(np.float64)
+    want = np.full(PR_VERTICES, 1.0 / PR_VERTICES)
+    for _ in range(PR_CHECK_ITERS):
+        want = (0.15 / PR_VERTICES
+                + 0.85 * np.bincount(dst, weights=(want / deg)[src], minlength=PR_VERTICES))
+    oracle_s = time.perf_counter() - t0
+    rel_l2 = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    if rel_l2 > PR_REL_L2_TOL:
+        raise AssertionError(f"pagerank: float32 ranks vs float64 oracle rel L2 "
+                             f"{rel_l2} > {PR_REL_L2_TOL}")
+
+    launches = {name: module.launches for name, module in counters.items()}
+    want_launches = {name: len(PR_MODES) + 1 if name == "skewed_bucket" else 0
+                     for name in counters}
+    if launches != want_launches:
+        raise AssertionError(f"pagerank: launches {launches}, want {want_launches}")
+    later = [m for m in finish if m != "hemt" and finish[m] <= finish["hemt"]]
+    if later:
+        raise AssertionError(f"pagerank: hemt ({finish['hemt']}) does not finish "
+                             f"before {later} ({[finish[m] for m in later]})")
+    best_homt = min(finish["homt-16"], finish["homt-64"])
+    emit({"phase": "pagerank_check", "check_iters": PR_CHECK_ITERS,
+          "rel_l2_vs_float64": rel_l2, "rel_tol": PR_REL_L2_TOL, "oracle_s": oracle_s,
+          "hemt_vs_even_pct": (finish["even"] - finish["hemt"]) / finish["even"] * 100,
+          "hemt_vs_best_homt_pct": (best_homt - finish["hemt"]) / best_homt * 100,
+          "card_ms_per_iter": ms_iter, "launches": launches,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+    return launches["skewed_bucket"]
+
+
 def main() -> int:
     import torch
 
@@ -473,10 +724,16 @@ def main() -> int:
         return 2
     import torch.nn.functional as F
 
+    import numpy as np
+
     from repro_torch.configs import get_config
+    from repro_torch.core import simulator as sim
+    from repro_torch.core import skewed_hash
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import skewed_bucket as sb
     from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.workloads import pagerank as pr
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -495,7 +752,8 @@ def main() -> int:
     smem = {"flash_attention": {"smem_bytes_by_head_dim":
                                 {d: fa.smem_bytes(d) for d in (16, 32, 64, 128)}},
             "ssd_scan": {"plan_serving": ssd_plan(ssd, SSD_SERVE_SHAPE),
-                         "plan_long": ssd_plan(ssd, SSD_LONG_SHAPE)}}
+                         "plan_long": ssd_plan(ssd, SSD_LONG_SHAPE)},
+            "skewed_bucket": {"max_buckets": sb.MAX_BUCKETS}}
     for kernel in KERNELS:
         emit({"phase": "build", "kernel": kernel,
               "library": str(built[kernel].path.relative_to(ROOT)), "build_s": build_s,
@@ -503,14 +761,18 @@ def main() -> int:
               "log": [ln for ln in built[kernel].log.splitlines() if ln.strip()]})
 
     dev = torch.device("cuda")
-    counters = {"flash_attention": fa, "ssd_scan": ssd}
+    counters = {"flash_attention": fa, "ssd_scan": ssd, "skewed_bucket": sb}
     rows = {"flash_attention": phase_flash_kernel(torch, F, ops, fa, ref),
-            "ssd_scan": phase_ssd_kernel(torch, ops, ssd, ref)}
+            "ssd_scan": phase_ssd_kernel(torch, ops, ssd, ref),
+            "skewed_bucket": phase_bucket_kernel(torch, np, ops, sb, ref, pr, skewed_hash)}
     rows["flash_attention"]["launches"] = phase_serve(
         torch, counters, get_config(ARCH), dev, "flash_attention", compare_granite)
     torch.cuda.empty_cache()
     rows["ssd_scan"]["launches"] = phase_serve(
         torch, counters, get_config(SSM_ARCH), dev, "ssd_scan", compare_mamba)
+    torch.cuda.empty_cache()
+    rows["skewed_bucket"]["launches"] = phase_pagerank(torch, np, counters, pr,
+                                                       skewed_hash, sim)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: rows[kernel][k] for k in keys} for kernel in KERNELS]})

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import skewed_bucket as _sb
 from repro_torch.kernels import ssd_scan as _ssd
 
 
@@ -58,3 +59,16 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     init = None if init_state is None else init_state.float().contiguous()
     y, fin = _ssd.ssd_scan(xdt, dta, B, C, init_state=init)
     return y.to(x.dtype), fin
+
+
+def skewed_bucket(hashes: torch.Tensor, capacities: torch.Tensor) -> torch.Tensor:
+    """Algorithm 1 bucket map (paper §7). hashes (T,), capacities (E,) on one
+    device; returns (T,) int32 bucket ids in [0, E).
+
+    On the card the kernel takes int32 hashes and raises on any other type
+    (the reference casts them to int32); the capacities are cast to int32
+    here, as the reference wrapper does.
+    """
+    if hashes.device.type == "cpu":
+        return ref.skewed_bucket_ref(hashes, capacities)
+    return _sb.skewed_bucket(hashes, capacities.to(torch.int32).contiguous())

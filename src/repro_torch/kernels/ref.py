@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the port's kernels (the allclose references).
 
-``flash_attention_ref`` and ``ssd_scan_ref`` are ported from
-``repro/kernels/ref.py``. The CPU paths of ``ops.flash_attention`` and
-``ops.ssd_scan`` run them, and the card's kernels are held against them;
-nothing on the main path calls them when a card is present.
+``flash_attention_ref``, ``ssd_scan_ref`` and ``skewed_bucket_ref`` are
+ported from ``repro/kernels/ref.py``. The CPU paths of ``ops.flash_attention``,
+``ops.ssd_scan`` and ``ops.skewed_bucket`` run them, and the card's kernels
+are held against them; nothing on the main path calls them when a card is
+present.
 """
 from __future__ import annotations
 
@@ -71,3 +72,16 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         ys.append(torch.einsum("bhpn,bhn->bhp", st, ch[:, t]))
     y = torch.stack(ys, dim=1) if ys else xf.new_zeros((bsz, 0, h, p))
     return y.to(x.dtype), st
+
+
+def skewed_bucket_ref(hashes: torch.Tensor, capacities: torch.Tensor) -> torch.Tensor:
+    """Algorithm 1: bucket = #(inclusive-prefix-sums <= h), h = hash mod total.
+
+    A broadcast compare and a row sum in int32; ``torch.remainder`` is
+    floor-mod, as ``jnp.mod``, so a negative hash lands in [0, total).
+    """
+    caps = capacities.to(torch.int32)
+    total = caps.sum(dtype=torch.int32)
+    h = torch.remainder(hashes.to(torch.int32), total)
+    cum = torch.cumsum(caps, 0, dtype=torch.int32)
+    return (cum[None, :] <= h[:, None]).sum(dim=-1, dtype=torch.int32)
