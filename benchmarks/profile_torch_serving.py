@@ -38,7 +38,7 @@ TOP = 12
 
 
 def kind(name: str) -> str:
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd_" in name:         # flash_fwd_wgmma_kernel (bf16), flash_fwd_kernel (fp32)
         return "flash_attention"
     if "ssd_scan_kernel" in name:
         return "ssd_scan"

@@ -14,16 +14,20 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 3. kernel  — each kernel against its plain PyTorch version on the card, at
              the reference's sweep shapes and at the path's shape, timed
              with CUDA events beside the plain version and the library call
-             (flash_attention, then ssd_scan, which also runs one long
-             prompt's shape, then skewed_bucket, held exactly to the plain
-             version and to numpy's ``bucket_of`` and timed with a cold L2);
+             (flash_attention on both routes, fp32 on the CUDA cores and
+             bf16 on the tensor cores, with bf16 head_dim-128 cases at
+             ragged lengths, GQA groups 1/4/8 and a window; then ssd_scan,
+             which also runs one long prompt's shape, then skewed_bucket,
+             held exactly to the plain version and to numpy's ``bucket_of``
+             and timed with a cold L2);
 4. serve   — full-width, full-depth granite-3-8b, then mamba2-2.7b, with
              random weights from a seed, each served for 3 HeMT-dispatched
              rounds over replicas 1.0,1.0,0.4 through
              ``make_prefill_step(impl="pallas")`` and ``make_serve_step``.
              Every kernel's count is set to 0 just before a model's rounds
              and read just after: its own kernel launched once per layer
-             and prefill, the other kernel never. Then pallas against xla
+             and prefill, the other kernel never; granite's flash launches
+             all on the wgmma (tensor-core) route. Then pallas against xla
              prefill logits (mamba2 also on one 8192-token prompt);
 5. pagerank — paper Fig 18's PageRank on a 4,847,571-vertex graph with 14
              out-edges per vertex (soc-LiveJournal1's vertex count), 100
@@ -44,6 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -77,6 +82,11 @@ SWEEP_SHAPES = [(1, 2, 2, 64, 64, 16), (2, 4, 2, 96, 96, 32),
                 (1, 8, 1, 128, 256, 64), (1, 2, 2, 33, 65, 16)]
 SWEEP_MASKS = [(True, 0), (True, 24), (False, 0)]
 SERVE_SHAPE = (10, 32, 8, 1024, 128)    # B, Hq, Hkv, S, D: the largest share
+# bf16 at the serving head_dim, model layout: ragged lengths around the
+# 128-row tiles, GQA groups 1, 4 and 8 (Hq 8), causal, causal + window, full
+WGMMA_LENGTHS = (1, 127, 129, 1000)
+WGMMA_HEADS = ((8, 8), (8, 2), (8, 1))
+WGMMA_MASKS = ((True, 0), (True, 100), (False, 0))
 # kernel vs plain version, both fp32 inside: bf16 output rounding dominates
 ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 RTOL = 1e-2
@@ -185,6 +195,27 @@ def visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
     return int(np.clip(hi - lo + 1, 0, None).sum())
 
 
+def ptxas_entries(log: str, entry: str) -> list:
+    """Registers, spill bytes and warnings that ``ptxas -v`` reports for each
+    instantiation of the kernel whose (mangled) name contains ``entry``."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = {"entry": ln.split("'")[1], "warnings": []} if entry in ln else None
+            if cur is not None:
+                out.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if m:
+                cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                cur["registers"] = int(m.group(1))
+            if "arning" in ln:
+                cur["warnings"].append(ln.strip())
+    return out
+
+
 def check_close(torch, got, want, atol: float, rtol: float, what: str) -> float:
     diff = (got.float() - want.float()).abs()
     bad = diff > atol + rtol * want.float().abs()
@@ -203,23 +234,47 @@ def phase_flash_kernel(torch, F, ops, fa, ref):
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    errs = {"float32": 0.0, "bfloat16": 0.0}
-    cases = 0
+    def run_case(q, k, v, causal, window, name, what):
+        route = fa.route_for(q.dtype)
+        before = dict(fa.launches_by_route)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        if fa.launches_by_route != {**before, route: before[route] + 1}:
+            raise AssertionError(f"{what}: not launched once on the {route} route")
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        return route, check_close(torch, got, want, ATOL[name], RTOL, what)
+
+    errs = {"simt": 0.0, "wgmma": 0.0}
+    cases = {"simt": 0, "wgmma": 0}
     for (b, hq, hkv, sq, sk, d) in SWEEP_SHAPES:
         for causal, window in SWEEP_MASKS:
             for name, dt in dtypes.items():
                 q, k, v = (randn((b, hq, sq, d), dt), randn((b, hkv, sk, d), dt),
                            randn((b, hkv, sk, d), dt))
-                got = fa.flash_attention(q, k, v, causal=causal, window=window)
-                want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-                err = check_close(torch, got, want, ATOL[name], RTOL,
-                                  f"sweep {(b, hq, hkv, sq, sk, d)} "
-                                  f"causal={causal} window={window} {name}")
-                errs[name] = max(errs[name], err)
-                cases += 1
+                route, err = run_case(q, k, v, causal, window, name,
+                                      f"sweep {(b, hq, hkv, sq, sk, d)} "
+                                      f"causal={causal} window={window} {name}")
+                errs[route] = max(errs[route], err)
+                cases[route] += 1
     torch.cuda.synchronize()
     emit({"phase": "kernel_sweep", "kernel": "flash_attention", "cases": cases,
           "max_abs_err": errs, "atol": ATOL, "rtol": RTOL})
+
+    wg_err, wg_cases = 0.0, 0
+    for s in WGMMA_LENGTHS:
+        for hq, hkv in WGMMA_HEADS:
+            for causal, window in WGMMA_MASKS:
+                q, k, v = (randn((2, s, h, 128), torch.bfloat16).transpose(1, 2)
+                           for h in (hq, hkv, hkv))
+                _, err = run_case(q, k, v, causal, window, "bfloat16",
+                                  f"head_dim 128 sq=sk={s} heads {hq}/{hkv} "
+                                  f"causal={causal} window={window}")
+                wg_err = max(wg_err, err)
+                wg_cases += 1
+    torch.cuda.synchronize()
+    emit({"phase": "kernel_sweep", "kernel": "flash_attention", "route": "wgmma",
+          "head_dim": 128, "lengths": WGMMA_LENGTHS, "heads": WGMMA_HEADS,
+          "masks": WGMMA_MASKS, "layout": "(B, S, H, D) viewed head-major",
+          "cases": wg_cases, "max_abs_err": wg_err, "atol": ATOL["bfloat16"], "rtol": RTOL})
 
     # the serving shape, in model layout as the prefill calls it
     b, hq, hkv, s, d = SERVE_SHAPE
@@ -256,7 +311,8 @@ def phase_flash_kernel(torch, F, ops, fa, ref):
            "library_ms": library_ms}
     emit({"phase": "kernel_serving_shape", "shape": {"q": [b, s, hq, d],
                                                       "kv": [b, s, hkv, d]},
-          "dtype": "bfloat16", "causal": True, "flops": flops, "bytes": nbytes,
+          "dtype": "bfloat16", "kernel_route": fa.route_for(q.dtype), "causal": True,
+          "flops": flops, "bytes": nbytes,
           "flops_bound_ms": flops_ms, "bytes_bound_ms": bytes_ms,
           "fp32_core_bound_ms": flops / PEAK_FP32_FLOPS * 1e3,
           "achieved_tflops": flops / (ms * 1e-3) / 1e12,
@@ -418,9 +474,10 @@ def compare_mamba(torch, cfg, params, prompts, dev):
     return out
 
 
-def phase_serve(torch, counters, cfg, dev, kernel, compare):
+def phase_serve(torch, counters, cfg, dev, kernel, compare, route=None):
     """Serve ``cfg`` for ROUNDS rounds; ``kernel`` must launch once per
-    layer and prefill call, the other counters not at all."""
+    layer and prefill call, all on ``route`` where given, the other
+    counters not at all."""
     from repro_torch.configs import padded_vocab_size
     from repro_torch.models.model import init_params
     from repro_torch.runtime.serve_loop import (HeMTBatcher, make_prefill_step,
@@ -446,6 +503,8 @@ def phase_serve(torch, counters, cfg, dev, kernel, compare):
 
     for module in counters.values():
         module.launches = 0
+        for name in getattr(module, "launches_by_route", {}):
+            module.launches_by_route[name] = 0
     prefill_calls = 0
     compare_prompts = None
     for rnd in range(ROUNDS):
@@ -505,15 +564,21 @@ def phase_serve(torch, counters, cfg, dev, kernel, compare):
               "virtual_makespan_s": makespan, "virtual_idle_s": idle,
               "card": measured})
     launches = {name: module.launches for name, module in counters.items()}
+    by_route = dict(getattr(counters[kernel], "launches_by_route", {}))
     want = {name: cfg.n_layers * prefill_calls if name == kernel else 0
             for name in counters}
     if launches != want:
         raise AssertionError(f"{cfg.name}: launches {launches} for {prefill_calls} "
                              f"prefill calls, want {want}")
+    if route is not None and by_route.get(route) != launches[kernel]:
+        raise AssertionError(f"{cfg.name}: {kernel} launches by route {by_route}, "
+                             f"want all {launches[kernel]} on {route}")
     peak = torch.cuda.max_memory_allocated()
 
     emit({"phase": "serve_check", "arch": cfg.name, "prefill_calls": prefill_calls,
-          "launches": launches, "launches_per_prefill": cfg.n_layers,
+          "launches": launches,
+          **({"launches_by_route": {kernel: by_route}} if by_route else {}),
+          "launches_per_prefill": cfg.n_layers,
           "max_memory_allocated_bytes": peak,
           **compare(torch, cfg, params, compare_prompts, dev)})
     return launches[kernel]
@@ -749,11 +814,26 @@ def main() -> int:
     with ThreadPoolExecutor(len(KERNELS)) as pool:   # one nvcc per source, together
         built = dict(zip(KERNELS, pool.map(build.build, KERNELS)))
     build_s = time.perf_counter() - t
-    smem = {"flash_attention": {"smem_bytes_by_head_dim":
-                                {d: fa.smem_bytes(d) for d in (16, 32, 64, 128)}},
+    smem = {"flash_attention": {"smem_bytes_by_route_and_head_dim":
+                                {route: {d: fa.smem_bytes(route, d) for d in (16, 32, 64, 128)}
+                                 for route in ("simt", "wgmma")}},
             "ssd_scan": {"plan_serving": ssd_plan(ssd, SSD_SERVE_SHAPE),
                          "plan_long": ssd_plan(ssd, SSD_LONG_SHAPE)},
             "skewed_bucket": {"max_buckets": sb.MAX_BUCKETS}}
+    for d in (16, 32, 64, 128):     # the wrapper's tile arithmetic is the library's
+        if fa.smem_bytes("wgmma", d) != fa.wgmma_smem_bytes(d):
+            raise AssertionError(f"flash wgmma smem at head_dim {d}: library "
+                                 f"{fa.smem_bytes('wgmma', d)}, wrapper {fa.wgmma_smem_bytes(d)}")
+    # the tensor-core route keeps its accumulators in registers: no spills
+    # and no "wgmma ... serialized" warning from ptxas
+    fa_log = built["flash_attention"].log
+    wgmma_entries = ptxas_entries(fa_log, "flash_fwd_wgmma_kernel")
+    serialized = [ln.strip() for ln in fa_log.splitlines() if "serialized" in ln]
+    smem["flash_attention"]["ptxas_wgmma"] = wgmma_entries
+    if not wgmma_entries or serialized or any(e.get("spill_bytes", 1) or e["warnings"]
+                                              for e in wgmma_entries):
+        raise AssertionError(f"flash wgmma kernel: ptxas reports {wgmma_entries} "
+                             f"{serialized}")
     for kernel in KERNELS:
         emit({"phase": "build", "kernel": kernel,
               "library": str(built[kernel].path.relative_to(ROOT)), "build_s": build_s,
@@ -766,7 +846,8 @@ def main() -> int:
             "ssd_scan": phase_ssd_kernel(torch, ops, ssd, ref),
             "skewed_bucket": phase_bucket_kernel(torch, np, ops, sb, ref, pr, skewed_hash)}
     rows["flash_attention"]["launches"] = phase_serve(
-        torch, counters, get_config(ARCH), dev, "flash_attention", compare_granite)
+        torch, counters, get_config(ARCH), dev, "flash_attention", compare_granite,
+        route="wgmma")
     torch.cuda.empty_cache()
     rows["ssd_scan"]["launches"] = phase_serve(
         torch, counters, get_config(SSM_ARCH), dev, "ssd_scan", compare_mamba)
