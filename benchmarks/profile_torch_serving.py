@@ -40,7 +40,7 @@ TOP = 12
 def kind(name: str) -> str:
     if "flash_fwd_" in name:         # flash_fwd_wgmma_kernel (bf16), flash_fwd_kernel (fp32)
         return "flash_attention"
-    if "ssd_scan_kernel" in name:
+    if "ssd_scan_kernel" in name or "ssd_wgmma_kernel" in name:   # fp32, bf16
         return "ssd_scan"
     # cuBLAS(Lt) names its kernels nvjet_*, *gemm*, *gemv*, splitKreduce_*
     if any(s in name.lower() for s in ("nvjet", "gemm", "gemv", "splitk", "xmma", "cutlass")):

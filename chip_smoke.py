@@ -16,19 +16,22 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              with CUDA events beside the plain version and the library call
              (flash_attention on both routes, fp32 on the CUDA cores and
              bf16 on the tensor cores, with bf16 head_dim-128 cases at
-             ragged lengths, GQA groups 1/4/8 and a window; then ssd_scan,
-             which also runs one long prompt's shape, then skewed_bucket,
-             held exactly to the plain version and to numpy's ``bucket_of``
-             and timed with a cold L2);
+             ragged lengths, GQA groups 1/4/8 and a window; then ssd_scan on
+             both routes, fp32 x on the CUDA cores and bf16 x on the tensor
+             cores, over the sweep and at the serving shape and one long
+             prompt's, where the whole ``ops.ssd_scan`` call of each route
+             is timed too; then skewed_bucket, held exactly to the plain
+             version and to numpy's ``bucket_of`` and timed with a cold L2);
 4. serve   — full-width, full-depth granite-3-8b, then mamba2-2.7b, with
              random weights from a seed, each served for 3 HeMT-dispatched
              rounds over replicas 1.0,1.0,0.4 through
              ``make_prefill_step(impl="pallas")`` and ``make_serve_step``.
              Every kernel's count is set to 0 just before a model's rounds
              and read just after: its own kernel launched once per layer
-             and prefill, the other kernel never; granite's flash launches
-             all on the wgmma (tensor-core) route. Then pallas against xla
-             prefill logits (mamba2 also on one 8192-token prompt);
+             and prefill, the other kernel never, all on the wgmma
+             (tensor-core) route. Then pallas against xla prefill logits
+             (mamba2 also on one 8192-token prompt, checked on an fp32 copy
+             of the weights, which runs the CUDA-core route);
 5. pagerank — paper Fig 18's PageRank on a 4,847,571-vertex graph with 14
              out-edges per vertex (soc-LiveJournal1's vertex count), 100
              iterations in each of the four modes of the demo, then a
@@ -96,12 +99,16 @@ RTOL = 1e-2
 PREFILL_REL_TOL = 5e-2
 
 # ssd_scan: (batch, S, H, P, G, N); the reference sweep's shapes
-# (tests/test_kernels.py), then B/C in bf16 over G in {1, 2, 4} and the
-# serving head and state sizes at a ragged S
+# (tests/test_kernels.py), then B/C in bf16 over G in {1, 2, 4}, the
+# serving head and state sizes at a ragged S, and 640 (batch, head) items at
+# a short S: more than twice the wgmma route's 2 x 132 consumer slots on an
+# H100, so every consumer warpgroup runs several items and frees a stage
+# across an item boundary
 SSD_SWEEP = [((1, 64, 2, 16, 1, 8), "float32"), ((2, 96, 4, 8, 2, 16), "float32"),
              ((1, 50, 4, 16, 4, 8), "float32")]
 SSD_SWEEP += [((2, 96, 8, 16, g, 16), "bfloat16") for g in (1, 2, 4)]
 SSD_SWEEP += [((2, 200, 8, 64, g, 128), "bfloat16") for g in (1, 4)]
+SSD_SWEEP += [((8, 130, 80, 64, 1, 128), "bfloat16")]
 SSD_SERVE_SHAPE = (10, 1024, 80, 64, 1, 128)   # the largest share's prefill
 SSD_LONG_SHAPE = (1, 8192, 80, 64, 1, 128)     # one long prompt
 # the reference sweep's tolerance: chunked against sequential sums in fp32
@@ -338,25 +345,30 @@ def ssd_inputs(torch, gen, shape, bc_dtype, with_init, a_max):
     return x, dt, a_log, B, C, init
 
 
-def ssd_plan(ssd, shape):
+def ssd_plan(ssd, route, shape):
     bsz, _, h, p, _, n = shape
-    return ssd.plan(bsz, h, p, n)
+    return ssd.plan(route, bsz, h, p, n)
 
 
 def ssd_work(shape, chunk):
-    """Operations and bytes one call needs at ``shape`` with B/C in bf16:
-    the causal half of the intra-chunk products at the kernel's chunk
-    length, the state products, and each input read and output written
-    once in fp32 (B/C in bf16)."""
+    """Operations one call needs at ``shape`` (the causal half of the
+    intra-chunk products at the kernels' chunk length and the state
+    products), the operations the wgmma route issues (its seven dense
+    64 x 64-row products a chunk), and the bytes of the whole
+    ``ops.ssd_scan`` call on each route, each input read and each output
+    written once: on the wgmma route x and y in bf16, dt and the state in
+    fp32; on the simt route xdt and y in fp32 and dta in fp32, the
+    wrapper's x, dt and y casts not counted."""
     bsz, s, h, p, g, n = shape
     nc = -(-s // chunk)
     per_chunk = chunk * (chunk + 1) // 2 * (n + p) * 2 + 2 * chunk * p * n * 2
     flops = bsz * h * nc * per_chunk
-    nbytes = (4 * bsz * s * h * p * 2          # xdt in, y out
-              + 4 * bsz * s * h                # dta
-              + 2 * bsz * s * g * n * 2        # B, C
-              + 4 * bsz * h * p * n)           # final state
-    return flops, nbytes
+    issued = bsz * h * nc * 2 * chunk * (chunk * n + 2 * chunk * n + 2 * chunk * p + 2 * p * n)
+    bc = 2 * bsz * s * g * n * 2                # B, C in bf16
+    state = 4 * bsz * h * p * n                 # final state
+    wgmma_bytes = 2 * bsz * s * h * p * 2 + 4 * bsz * s * h + bc + state
+    simt_bytes = 4 * bsz * s * h * p * 2 + 4 * bsz * s * h + bc + state
+    return flops, issued, wgmma_bytes, simt_bytes
 
 
 def phase_ssd_kernel(torch, ops, ssd, ref):
@@ -365,44 +377,104 @@ def phase_ssd_kernel(torch, ops, ssd, ref):
     gen.manual_seed(SEED + 2)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
+    def launched_once(route, before, what):
+        if ssd.launches_by_route != {**before, route: before[route] + 1}:
+            raise AssertionError(f"{what}: not launched once on the {route} route")
+
+    # the simt route: fp32 x, B/C as the sweep gives them
     err, cases = 0.0, 0
     for shape, bc_name in SSD_SWEEP:
         for with_init in (False, True):
             x, dt, a_log, B, C, init = ssd_inputs(torch, gen, shape, dtypes[bc_name],
                                                   with_init, 8.0)
             x = x.float()
+            what = f"ssd simt sweep {shape} B/C {bc_name} init={with_init}"
+            before = dict(ssd.launches_by_route)
             got_y, got_f = ops.ssd_scan(x, dt, a_log, B, C, chunk=16, init_state=init)
+            launched_once("simt", before, what)
             want_y, want_f = ref.ssd_scan_ref(x, dt, a_log, B, C, init_state=init)
-            what = f"ssd sweep {shape} B/C {bc_name} init={with_init}"
             err = max(err, check_close(torch, got_y, want_y, SSD_ATOL, 0.0, what + " y"),
                       check_close(torch, got_f, want_f, SSD_ATOL, 0.0, what + " state"))
             cases += 1
     torch.cuda.synchronize()
-    emit({"phase": "kernel_sweep", "kernel": "ssd_scan", "cases": cases,
+    emit({"phase": "kernel_sweep", "kernel": "ssd_scan", "route": "simt", "cases": cases,
           "max_abs_err": err, "atol": SSD_ATOL})
 
+    # the wgmma route: the same shapes with x, B and C in bf16; y in fp32 and
+    # the state against the plain version at the sweep's tolerance, y in bf16
+    # (the model's call) against the plain y rounded to bf16
+    err, err16, cases = 0.0, 0.0, 0
+    for shape, _ in SSD_SWEEP:
+        for with_init in (False, True):
+            x, dt, a_log, B, C, init = ssd_inputs(torch, gen, shape, torch.bfloat16,
+                                                  with_init, 8.0)
+            what = f"ssd wgmma sweep {shape} init={with_init}"
+            before = dict(ssd.launches_by_route)
+            y32, f32 = ssd.ssd_scan(x, dt, a_log, B, C, init_state=init,
+                                    y_dtype=torch.float32)
+            launched_once("wgmma", before, what)
+            before = dict(ssd.launches_by_route)
+            y16, f16 = ops.ssd_scan(x, dt, a_log, B, C, chunk=16, init_state=init)
+            launched_once("wgmma", before, what)
+            want_y, want_f = ref.ssd_scan_ref(x.float(), dt, a_log, B, C, init_state=init)
+            err = max(err, check_close(torch, y32, want_y, SSD_ATOL, 0.0, what + " y"),
+                      check_close(torch, f32, want_f, SSD_ATOL, 0.0, what + " state"),
+                      check_close(torch, f16, want_f, SSD_ATOL, 0.0, what + " state (bf16 y)"))
+            if y16.dtype != torch.bfloat16:
+                raise AssertionError(f"{what}: y is {y16.dtype}, not x's bfloat16")
+            err16 = max(err16, check_close(torch, y16, want_y.bfloat16(), ATOL["bfloat16"],
+                                           RTOL, what + " bf16 y"))
+            cases += 1
+    torch.cuda.synchronize()
+    emit({"phase": "kernel_sweep", "kernel": "ssd_scan", "route": "wgmma", "cases": cases,
+          "max_abs_err": err, "atol": SSD_ATOL, "max_abs_err_bf16_y": err16,
+          "atol_bf16_y": ATOL["bfloat16"], "rtol_bf16_y": RTOL})
+
     # the serving shape and one long prompt, as the model calls the kernel:
-    # x and B/C in bf16, a_log = log(linspace(1, 16, H)); the raw fp32
-    # output against the fp32 plain version on the same inputs
+    # x and B/C in bf16, a_log = log(linspace(1, 16, H)); the fp32 y and the
+    # state against the fp32 plain version on the same values, and the call
+    # timed as op_ms (bf16 y, the mode the model runs) against the plain y
+    # rounded to bf16 and the plain state
     rows = {}
     for name, shape in (("serving", SSD_SERVE_SHAPE), ("long", SSD_LONG_SHAPE)):
         bsz, s, h, p, g, n = shape
         x, dt, a_log, B, C, _ = ssd_inputs(torch, gen, shape, torch.bfloat16, False, 16.0)
-        a = -torch.exp(a_log)
-        xdt, dta = x.float() * dt[..., None], dt * a
-        got_y, got_f = ssd.ssd_scan(xdt, dta, B, C)
         want_y, want_f = ref.ssd_scan_ref(x.float(), dt, a_log, B, C)
+        before = dict(ssd.launches_by_route)
+        got_y, got_f = ssd.ssd_scan(x, dt, a_log, B, C, y_dtype=torch.float32)
+        launched_once("wgmma", before, f"ssd {name} fp32 y")
         err = max(check_close(torch, got_y, want_y, SSD_ATOL, 0.0, f"ssd {name} y"),
                   check_close(torch, got_f, want_f, SSD_ATOL, 0.0, f"ssd {name} state"))
+        del got_y, got_f
+        before = dict(ssd.launches_by_route)
+        got_y, got_f = ops.ssd_scan(x, dt, a_log, B, C)
+        launched_once("wgmma", before, f"ssd {name} bf16 y")
+        if got_y.dtype != torch.bfloat16:
+            raise AssertionError(f"ssd {name}: y is {got_y.dtype}, not x's bfloat16")
+        err16 = check_close(torch, got_y, want_y.bfloat16(), ATOL["bfloat16"], RTOL,
+                            f"ssd {name} bf16 y")
+        err = max(err, check_close(torch, got_f, want_f, SSD_ATOL, 0.0,
+                                   f"ssd {name} state (bf16 y)"))
         del got_y, got_f, want_y, want_f
-        ms = cuda_ms(torch, lambda: ssd.ssd_scan(xdt, dta, B, C), iters=20)
+        xdt = (x.float() * dt[..., None]).contiguous()
+        dta = (dt * -a_log.exp()).contiguous()
+        # ms: the tensor-core kernel alone (its wrapper's checks and
+        # allocations included, as the prep is inside it); op_ms: the whole
+        # ops.ssd_scan call the model makes; simt_*: the CUDA-core route on
+        # the same inputs, its kernel alone and its whole call with the prep
+        ms = cuda_ms(torch, lambda: ssd.wgmma(x, dt, a_log, B, C), iters=20)
+        op_ms = cuda_ms(torch, lambda: ops.ssd_scan(x, dt, a_log, B, C), iters=20)
+        simt_ms = cuda_ms(torch, lambda: ssd.simt(xdt, dta, B, C), iters=5)
+        simt_op_ms = cuda_ms(torch, lambda: ssd.ssd_scan(x.float(), dt, a_log, B, C,
+                                                         y_dtype=torch.bfloat16), iters=5)
         plain_ms = cuda_ms(torch, lambda: ref.ssd_scan_ref(x.float(), dt, a_log, B, C),
                            iters=2, warmup=1)
-        plan = ssd_plan(ssd, shape)
-        flops, nbytes = ssd_work(shape, plan["chunk"])
-        flops_ms = flops / PEAK_TF32_FLOPS * 1e3
+        chunk = ssd_plan(ssd, "wgmma", shape)["chunk"]
+        flops, issued, nbytes, simt_bytes = ssd_work(shape, chunk)
+        flops_ms = flops / PEAK_BF16_FLOPS * 1e3
         bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
         bound_ms = max(flops_ms, bytes_ms)
+        simt_bound_ms = max(flops / PEAK_TF32_FLOPS, simt_bytes / PEAK_HBM_BYTES) * 1e3
         rows[name] = {"name": "ssd_scan", "route": "cuda",
                       "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
                       "replaces": "src/repro/kernels/ssd_scan.py:75",
@@ -411,14 +483,23 @@ def phase_ssd_kernel(torch, ops, ssd, ref):
                       "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
                       "library_ms": None}
         emit({"phase": f"kernel_{name}_shape", "kernel": "ssd_scan",
-              "shape": {"x": [bsz, s, h, p], "B": [bsz, s, g, n]}, "bc_dtype": "bfloat16",
-              "plan": plan, "flops": flops, "bytes": nbytes,
-              "flops_bound_ms_tf32": flops_ms, "bytes_bound_ms": bytes_ms,
-              "fp32_core_bound_ms": flops / PEAK_FP32_FLOPS * 1e3,
-              "achieved_tflops": flops / (ms * 1e-3) / 1e12,
+              "shape": {"x": [bsz, s, h, p], "B": [bsz, s, g, n]}, "dtype": "bfloat16",
+              "kernel_route": ssd.route_for(x.dtype),
+              "plan": ssd_plan(ssd, "wgmma", shape),
+              "simt_plan": ssd_plan(ssd, "simt", shape),
+              "max_abs_err_bf16_y": err16, "atol_bf16_y": ATOL["bfloat16"],
+              "rtol_bf16_y": RTOL,
+              "op_ms": op_ms, "simt_ms": simt_ms, "simt_op_ms": simt_op_ms,
+              "flops_needed": flops, "flops_issued": issued, "bytes": nbytes,
+              "flops_bound_ms_bf16": flops_ms, "bytes_bound_ms": bytes_ms,
+              "bound_ms_whole_call_bf16_io": bound_ms,
+              "simt_bytes": simt_bytes,
+              "bound_ms_xdt_y_fp32_io_tf32": simt_bound_ms,
               "achieved_tb_per_s": nbytes / (ms * 1e-3) / 1e12,
-              "roofline_share": bound_ms / ms, "library": SSD_NO_LIBRARY,
-              **rows[name]})
+              "achieved_tflops_issued": issued / (ms * 1e-3) / 1e12,
+              "roofline_share": bound_ms / ms, "op_roofline_share": bound_ms / op_ms,
+              "simt_op_roofline_share": bound_ms / simt_op_ms,
+              "library": SSD_NO_LIBRARY, **rows[name]})
         del x, dt, B, C, xdt, dta
     return rows["serving"]
 
@@ -817,23 +898,27 @@ def main() -> int:
     smem = {"flash_attention": {"smem_bytes_by_route_and_head_dim":
                                 {route: {d: fa.smem_bytes(route, d) for d in (16, 32, 64, 128)}
                                  for route in ("simt", "wgmma")}},
-            "ssd_scan": {"plan_serving": ssd_plan(ssd, SSD_SERVE_SHAPE),
-                         "plan_long": ssd_plan(ssd, SSD_LONG_SHAPE)},
+            "ssd_scan": {f"plan_{route}_{name}": ssd_plan(ssd, route, shape)
+                         for route in ("simt", "wgmma")
+                         for name, shape in (("serving", SSD_SERVE_SHAPE),
+                                             ("long", SSD_LONG_SHAPE))},
             "skewed_bucket": {"max_buckets": sb.MAX_BUCKETS}}
     for d in (16, 32, 64, 128):     # the wrapper's tile arithmetic is the library's
         if fa.smem_bytes("wgmma", d) != fa.wgmma_smem_bytes(d):
             raise AssertionError(f"flash wgmma smem at head_dim {d}: library "
                                  f"{fa.smem_bytes('wgmma', d)}, wrapper {fa.wgmma_smem_bytes(d)}")
-    # the tensor-core route keeps its accumulators in registers: no spills
+    # the tensor-core routes keep their accumulators in registers: no spills
     # and no "wgmma ... serialized" warning from ptxas
-    fa_log = built["flash_attention"].log
-    wgmma_entries = ptxas_entries(fa_log, "flash_fwd_wgmma_kernel")
-    serialized = [ln.strip() for ln in fa_log.splitlines() if "serialized" in ln]
-    smem["flash_attention"]["ptxas_wgmma"] = wgmma_entries
-    if not wgmma_entries or serialized or any(e.get("spill_bytes", 1) or e["warnings"]
-                                              for e in wgmma_entries):
-        raise AssertionError(f"flash wgmma kernel: ptxas reports {wgmma_entries} "
-                             f"{serialized}")
+    for kernel, entry in (("flash_attention", "flash_fwd_wgmma_kernel"),
+                          ("ssd_scan", "ssd_wgmma_kernel")):
+        log = built[kernel].log
+        entries = ptxas_entries(log, entry)
+        serialized = [ln.strip() for ln in log.splitlines() if "serialized" in ln]
+        smem[kernel]["ptxas_wgmma"] = entries
+        if not entries or serialized or any(e.get("spill_bytes", 1) or e["warnings"]
+                                            for e in entries):
+            raise AssertionError(f"{kernel} wgmma kernel: ptxas reports {entries} "
+                                 f"{serialized}")
     for kernel in KERNELS:
         emit({"phase": "build", "kernel": kernel,
               "library": str(built[kernel].path.relative_to(ROOT)), "build_s": build_s,
@@ -850,7 +935,8 @@ def main() -> int:
         route="wgmma")
     torch.cuda.empty_cache()
     rows["ssd_scan"]["launches"] = phase_serve(
-        torch, counters, get_config(SSM_ARCH), dev, "ssd_scan", compare_mamba)
+        torch, counters, get_config(SSM_ARCH), dev, "ssd_scan", compare_mamba,
+        route="wgmma")
     torch.cuda.empty_cache()
     rows["skewed_bucket"]["launches"] = phase_pagerank(torch, np, counters, pr,
                                                        skewed_hash, sim)

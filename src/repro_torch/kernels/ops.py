@@ -42,23 +42,20 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
     x: (batch, S, H, P); dt: (batch, S, H) (already softplus'd); a_log:
     (H,); B/C: (batch, S, G, N). Returns (y in x's dtype, final state
-    fp32). On the card it computes a = -exp(a_log), dta = dt * a and
-    xdt = x * dt in fp32, as the reference wrapper does, and seeds the
-    kernel's state with ``init_state`` instead of folding it in afterwards.
-    ``chunk`` is the reference's tile length; the kernel masks the ragged
-    chunk and picks its own length (chunked SSD is exact, so only rounding
-    depends on it).
+    fp32). On the card x's dtype picks the kernel: bf16 x goes to the
+    tensor-core route, which reads x, dt, a_log, B and C where they lie and
+    computes a = -exp(a_log), dt * a and x * dt itself; fp32 x goes to the
+    CUDA-core route, whose wrapper computes them. Both seed the state with
+    ``init_state`` instead of folding it in afterwards. ``chunk`` is the
+    reference's tile length; the kernels mask the ragged chunk and pick
+    their own length (chunked SSD is exact, so only rounding depends on it).
     """
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     if x.device.type == "cpu":
         return ref.ssd_scan_ref(x, dt, a_log, B, C, init_state=init_state)
-    a = -torch.exp(a_log.float())
-    dta = (dt.float() * a).contiguous()
-    xdt = (x.float() * dt.float()[..., None]).contiguous()
     init = None if init_state is None else init_state.float().contiguous()
-    y, fin = _ssd.ssd_scan(xdt, dta, B, C, init_state=init)
-    return y.to(x.dtype), fin
+    return _ssd.ssd_scan(x, dt.float(), a_log.float().contiguous(), B, C, init_state=init)
 
 
 def skewed_bucket(hashes: torch.Tensor, capacities: torch.Tensor) -> torch.Tensor:
