@@ -13,7 +13,7 @@ from repro_torch.configs.base import (
 __all__ = [
     "ARCH_IDS", "ArchBundle", "AttentionConfig", "MeshConfig", "ModelConfig",
     "MoEConfig", "SSMConfig", "ShapeConfig", "TrainConfig", "active_param_count",
-    "get_config", "get_reduced", "padded_vocab_size", "param_count",
+    "get_bundle", "get_config", "get_reduced", "padded_vocab_size", "param_count",
 ]
 
 # arch id -> module name
@@ -29,6 +29,10 @@ def _module(arch: str):
     if arch not in _ARCH_MODULES:
         raise KeyError(f"arch {arch!r} is not ported yet; ported: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
+
+
+def get_bundle(arch: str) -> ArchBundle:
+    return _module(arch).BUNDLE
 
 
 def get_config(arch: str) -> ModelConfig:

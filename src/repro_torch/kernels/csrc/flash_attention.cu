@@ -22,7 +22,8 @@
 //   A block has two consumer warpgroups of 64 query rows each and one
 //   producer warpgroup, which hands most of its registers to the consumers
 //   (setmaxnreg) and keeps one thread issuing TMA loads: Q once per item,
-//   K and V tiles of 128 keys into a two-stage ring (4-D tensor maps over
+//   K and V tiles of 128 keys (64 at head_dim 256) into a two-stage ring
+//   (4-D tensor maps over
 //   (D, S, H, B) built from the caller's strides, 128 B swizzle, rows past
 //   the sequence and columns past D read as zeros), with mbarriers for
 //   "full" and "empty" on every stage and on Q. Both products are
@@ -35,13 +36,18 @@
 //   of tile i while the PV product is on the tensor cores. The softmax
 //   uses exp2 with scale * log2(e) folded into one FFMA; only tiles that
 //   straddle the diagonal, the window edge or Sk evaluate the mask. Head
-//   dims up to 64 run one 64-wide column block, larger ones two; the zeros
-//   TMA fills in past D add nothing and are never stored.
+//   dims up to 64 run one 64-wide column block, up to 128 two, up to 256
+//   four; the zeros TMA fills in past D add nothing and are never stored.
+//   At head_dim 256 the K/V tiles hold 64 keys, so that Q (64 KB) and the
+//   ring (2 x (K + V) x 32 KB) fit one block's shared memory; a consumer
+//   thread then holds the 64 x 256 O accumulator in 128 registers and the
+//   64 x 64 S tile in 32, and the PV product runs as two m64n128 halves.
 // * float32 -> flash_fwd_kernel, on the CUDA cores. Tensor cores would take
 //   fp32 as TF32, which misses the reference's float32 tolerance, so this
 //   route keeps the first port's design: one block per (batch*head, 64-query
 //   tile), each tile staged once in shared memory, fp32 FMAs, the online
-//   softmax state in registers.
+//   softmax state in registers. Head dims up to 256 (one block per SM at
+//   256: 194 KB of shared memory).
 //
 // The TPU kernel runs its kv grid axis in order and carries (m, l, acc) in
 // VMEM scratch across it. CUDA blocks run in no order, so both routes loop
@@ -90,8 +96,10 @@ constexpr int smem_floats() {
 // Thread (ty, tx) owns query rows ty + 16*i (i < 4), score columns
 // tx + 16*j (j < 4) and output columns tx + 16*j (j < DP/16). The 16 threads
 // that share a row sit in one half-warp, so row reductions are shuffles.
+// two blocks per SM (<= 128 registers) up to head_dim 128; at 256 the tiles
+// take one SM's shared memory, so one block with up to 255 registers
 template <typename T, int DP>
-__global__ void __launch_bounds__(NT, 2)  // two blocks per SM: <= 128 registers
+__global__ void __launch_bounds__(NT, (DP > 128 ? 1 : 2))
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int hq, int group,
                  int sq, int sk, int d, Strides st, float scale, int causal,
@@ -264,7 +272,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b,
 namespace wg {
 
 constexpr int BM = 128;             // query rows per block
-constexpr int BN = 128;             // keys per kv tile
 constexpr int STAGES = 2;           // K/V ring depth
 constexpr int CONSUMERS = 2;        // warpgroups of 64 query rows
 constexpr int THREADS = CONSUMERS * 128 + 128;  // and one producer warpgroup
@@ -274,6 +281,11 @@ constexpr int COLS = 64;            // bf16 per 128 B swizzled row
 constexpr int ROW_BYTES = COLS * 2;
 constexpr float LOG2E = 1.4426950408889634f;
 
+// keys per kv tile: 128, or 64 at head_dim 256, where a two-stage ring of
+// 128-key tiles would not fit shared memory
+template <int DP>
+__host__ __device__ constexpr int block_n() { return DP > 128 ? 64 : 128; }
+
 // A tile of R rows is stored as DP / 64 column blocks of R rows x 128 B,
 // each in TMA's 128 B swizzle (1024 B atoms of 8 rows), 1024 B aligned.
 template <int DP>
@@ -281,7 +293,7 @@ __host__ __device__ constexpr int tile_bytes(int rows) { return (DP / COLS) * ro
 template <int DP>
 __host__ __device__ constexpr int smem_bytes() {
   // alignment slack + Q + STAGES x (K + V) + 9 mbarriers (padded to 128 B)
-  return 1024 + tile_bytes<DP>(BM) + STAGES * 2 * tile_bytes<DP>(BN) + 128;
+  return 1024 + tile_bytes<DP>(BM) + STAGES * 2 * tile_bytes<DP>(block_n<DP>()) + 128;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -399,6 +411,30 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// D (64 x 64, fp32) = A (64 x 16, smem, K-major) * B (64 x 16, smem, K-major) [+ D]
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // D (64 x 128, fp32) += A (64 x 16, bf16 pairs in registers) * B (16 x 128, smem, MN-major)
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], uint32_t a0, uint32_t a1,
                                                  uint32_t a2, uint32_t a3, uint64_t desc_b,
@@ -459,30 +495,49 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], uint32_t a0, 
 }
 
 
-// S (64 x 128 keys) = Q (this warpgroup's 64 rows) K^T, both K-major in
+// S (64 x BN keys) = Q (this warpgroup's 64 rows) K^T, both K-major in
 // shared memory: each k16 step moves 32 B along the swizzled row, each 64
 // columns a column block. Issued, not waited for.
 template <int DP>
-__device__ __forceinline__ void qk_gemm(float (&sc)[64], uint32_t q_addr, uint32_t k_addr) {
+__device__ __forceinline__ void qk_gemm(float (&sc)[block_n<DP>() / 2], uint32_t q_addr,
+                                        uint32_t k_addr) {
+  constexpr int BN = block_n<DP>();
 #pragma unroll
   for (int kk = 0; kk < DP / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;
-    wgmma_m64n128k16_ss(sc, make_desc(q_addr + (kk / 4) * BM * ROW_BYTES + off, 16, 1024),
-                        make_desc(k_addr + (kk / 4) * BN * ROW_BYTES + off, 16, 1024), kk > 0);
+    const uint64_t desc_q = make_desc(q_addr + (kk / 4) * BM * ROW_BYTES + off, 16, 1024);
+    const uint64_t desc_k = make_desc(k_addr + (kk / 4) * BN * ROW_BYTES + off, 16, 1024);
+    if constexpr (BN == 128) {
+      wgmma_m64n128k16_ss(sc, desc_q, desc_k, kk > 0);
+    } else {
+      wgmma_m64n64k16_ss(sc, desc_q, desc_k, kk > 0);
+    }
   }
 }
 
-// O (64 x DP) += P (64 x 128 keys, bf16 pairs in registers) V. V is 128 keys
+// O (64 x DP) += P (64 x BN keys, bf16 pairs in registers) V. V is BN keys
 // x DP, MN-major: 8 keys per 1024 B atom (SBO), 64 columns per column block
 // (LBO); each k16 step moves two atoms. k16 step kk takes P's 8-column
-// blocks 2 kk and 2 kk + 1. Issued, not waited for.
+// blocks 2 kk and 2 kk + 1. At head_dim 256 the product runs as two m64n128
+// halves over column blocks 0-1 and 2-3, whose accumulators are O's
+// elements 0-63 and 64-127 (the m64n256 fragment's order). Issued, not
+// waited for.
 template <int DP>
-__device__ __forceinline__ void pv_gemm(float (&o)[DP / 2], const uint32_t (&pa)[32],
+__device__ __forceinline__ void pv_gemm(float (&o)[DP / 2], const uint32_t (&pa)[block_n<DP>() / 4],
                                         uint32_t v_addr) {
+  constexpr int BN = block_n<DP>();
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < BN / 16; ++kk) {
     const uint64_t desc = make_desc(v_addr + kk * 2048, BN * ROW_BYTES, 1024);
-    if constexpr (DP == 128) {
+    if constexpr (DP == 256) {
+      const uint64_t desc_hi = make_desc(v_addr + 2 * BN * ROW_BYTES + kk * 2048,
+                                         BN * ROW_BYTES, 1024);
+      float (&lo)[64] = *reinterpret_cast<float (*)[64]>(&o[0]);
+      float (&hi)[64] = *reinterpret_cast<float (*)[64]>(&o[64]);
+      wgmma_m64n128k16_rs(lo, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3], desc, 1);
+      wgmma_m64n128k16_rs(hi, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3], desc_hi,
+                          1);
+    } else if constexpr (DP == 128) {
       wgmma_m64n128k16_rs(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3], desc, 1);
     } else {
       wgmma_m64n64k16_rs(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3], desc, 1);
@@ -492,9 +547,10 @@ __device__ __forceinline__ void pv_gemm(float (&o)[DP / 2], const uint32_t (&pa)
 
 // P's bf16 pairs in the register A layout of the m64 k16 product: the
 // accumulator's elements 8 kk .. 8 kk + 7 are the A fragment of step kk
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[32], const float (&sc)[64]) {
+template <int NS>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[NS / 2], const float (&sc)[NS]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+  for (int i = 0; i < NS / 2; ++i) pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
 }
 
 // Online softmax over one tile of S, in place: updates the running max m
@@ -505,7 +561,8 @@ __device__ __forceinline__ void pack_p(uint32_t (&pa)[32], const float (&sc)[64]
 // of the raw scores scales to the max of the scaled ones for a positive
 // scale); any other tile scales first and masks each element against its
 // row's visible key range [lo, hi).
-__device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2], float (&l)[2],
+template <int NS>
+__device__ __forceinline__ void softmax_tile(float (&sc)[NS], float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], bool full, int k0, int row_a,
                                              int quad, int sk, int causal, int window,
                                              float scale_log2) {
@@ -513,7 +570,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2], flo
   if (full && scale_log2 > 0.f) {
     float raw[2] = {sc[0], sc[2]};
 #pragma unroll
-    for (int i = 0; i < 64; ++i) raw[(i >> 1) & 1] = fmaxf(raw[(i >> 1) & 1], sc[i]);
+    for (int i = 0; i < NS; ++i) raw[(i >> 1) & 1] = fmaxf(raw[(i >> 1) & 1], sc[i]);
 #pragma unroll
     for (int r = 0; r < 2; ++r) mx[r] = fmaxf(m[r], raw[r] * scale_log2);
   } else {
@@ -530,7 +587,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2], flo
     mx[0] = m[0];
     mx[1] = m[1];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < NS; ++i) {
       const int r = (i >> 1) & 1;
       const int c = 8 * (i >> 2) + (i & 1);
       const float x = (c >= lo[r] && c < hi[r]) ? sc[i] * scale_log2 : NEG_INF;
@@ -549,7 +606,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2], flo
   }
   if (full && scale_log2 > 0.f) {
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < NS; ++i) {
       const int r = (i >> 1) & 1;
       const float p = fast_exp2(fmaf(sc[i], scale_log2, -m[r]));
       sc[i] = p;
@@ -557,7 +614,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2], flo
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < NS; ++i) {
       const int r = (i >> 1) & 1;
       const float p = fast_exp2(sc[i] - m[r]);
       sc[i] = p;
@@ -566,7 +623,9 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2], flo
   }
 }
 
-// live kv tiles of the query tile starting at q0: the causal and window skip
+// live kv tiles of BN keys of the query tile starting at q0: the causal and
+// window skip
+template <int BN>
 __device__ __forceinline__ void kv_tiles(int q0, int sk, int causal, int window,
                                          int* first, int* count) {
   const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
@@ -601,6 +660,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        __nv_bfloat16* __restrict__ o, long long ob, long long oh,
                        long long os, int hq, int group, int sq, int sk, int d,
                        float scale_log2, int causal, int window, int n_bh, int n_items) {
+  constexpr int BN = block_n<DP>();           // keys per kv tile
   constexpr int NCB = DP / COLS;              // 64-wide column blocks
   constexpr int Q_BYTES = tile_bytes<DP>(BM);
   constexpr int KV_BYTES = tile_bytes<DP>(BN);
@@ -660,7 +720,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int r = 0; item_of(r) < n_items; ++r) {
       int b, h, q0, t_first, n_tiles;
       decode(item_of(r), &b, &h, &q0);
-      kv_tiles(q0, sk, causal, window, &t_first, &n_tiles);
+      kv_tiles<BN>(q0, sk, causal, window, &t_first, &n_tiles);
       if (n_tiles == 0) continue;
       const int hk = h / group;
       if (nq > 0) mbar_wait(q_empty, (nq - 1) & 1);
@@ -692,14 +752,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
   const int t = threadIdx.x % 128;
   const int quad = t % 4;
-  float sc[64];
+  float sc[BN / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+  for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
   int g = 0, nq = 0;
   for (int r = 0; item_of(r) < n_items; ++r) {
     int b, h, q0, t_first, n_tiles;
     decode(item_of(r), &b, &h, &q0);
-    kv_tiles(q0, sk, causal, window, &t_first, &n_tiles);
+    kv_tiles<BN>(q0, sk, causal, window, &t_first, &n_tiles);
     const int qw0 = q0 + 64 * warpgroup;                 // this warpgroup's first row
     const int row_a = qw0 + 16 * (t / 32) + (t % 32) / 4;
     const uint32_t q_addr = s_q + 64 * warpgroup * ROW_BYTES;
@@ -707,7 +767,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     float acc[DP / 2];
 #pragma unroll
     for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
-    uint32_t pa[32];
+    uint32_t pa[BN / 4];
     float m[2] = {NEG_INF, NEG_INF};
     float l[2] = {0.f, 0.f};                             // this thread's columns only
     float alpha[2];
@@ -836,13 +896,13 @@ EncodeTiledFn encode_tiled() {
 }
 
 // (D, S, H, B) bf16 tensor with element strides (ss, sh, sb); box of 64
-// columns x 128 rows of one head; out-of-bounds elements read as zero
+// columns x `rows` rows of one head; out-of-bounds elements read as zero
 bool make_map(EncodeTiledFn encode, CUtensorMap* map, const void* ptr, int d, int s, int h,
-              int b, long long ss, long long sh, long long sb) {
+              int b, long long ss, long long sh, long long sb, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)(s > 0 ? s : 1), (cuuint64_t)h,
                               (cuuint64_t)b};
   const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)wg::COLS, (cuuint32_t)wg::BN, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)wg::COLS, (cuuint32_t)rows, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -854,13 +914,13 @@ template <int DP>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b, int hq, int hkv,
                  int sq, int sk, int d, const Strides& st, float scale, int causal, int window,
                  cudaStream_t stream) {
-  static_assert(wg::BM == wg::BN, "one tensor-map box serves Q, K and V");
+  constexpr int bn = wg::block_n<DP>();
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return ERR_NO_ENCODE;
   CUtensorMap tq, tk, tv;
-  if (!make_map(encode, &tq, q, d, sq, hq, b, st.qs, st.qh, st.qb) ||
-      !make_map(encode, &tk, k, d, sk, hkv, b, st.ks, st.kh, st.kb) ||
-      !make_map(encode, &tv, v, d, sk, hkv, b, st.vs, st.vh, st.vb))
+  if (!make_map(encode, &tq, q, d, sq, hq, b, st.qs, st.qh, st.qb, wg::BM) ||
+      !make_map(encode, &tk, k, d, sk, hkv, b, st.ks, st.kh, st.kb, bn) ||
+      !make_map(encode, &tv, v, d, sk, hkv, b, st.vs, st.vh, st.vb, bn))
     return ERR_TENSOR_MAP;
   constexpr int smem = wg::smem_bytes<DP>();
   auto kernel = wg::flash_fwd_wgmma_kernel<DP>;
@@ -881,7 +941,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b, in
 
 bool args_ok(int b, int hq, int hkv, int sq, int sk, int d, int window, int q_tile) {
   return b >= 1 && hq >= 1 && hkv >= 1 && hq % hkv == 0 && sq >= 1 && sk >= 0 && d >= 1 &&
-         d <= 128 && window >= 0 && (long long)b * hq <= 2147483647LL &&
+         d <= 256 && window >= 0 && (long long)b * hq <= 2147483647LL &&
          (sq + q_tile - 1) / q_tile <= 65535;
 }
 
@@ -908,7 +968,8 @@ int flash_attention_fwd_simt(const void* q, const void* k, const void* v, void* 
   if (d <= 16) return (int)launch<float, 16>(q, k, v, o, b, hq, hkv, sq, sk, d, st, scale, causal, window, s);
   if (d <= 32) return (int)launch<float, 32>(q, k, v, o, b, hq, hkv, sq, sk, d, st, scale, causal, window, s);
   if (d <= 64) return (int)launch<float, 64>(q, k, v, o, b, hq, hkv, sq, sk, d, st, scale, causal, window, s);
-  return (int)launch<float, 128>(q, k, v, o, b, hq, hkv, sq, sk, d, st, scale, causal, window, s);
+  if (d <= 128) return (int)launch<float, 128>(q, k, v, o, b, hq, hkv, sq, sk, d, st, scale, causal, window, s);
+  return (int)launch<float, 256>(q, k, v, o, b, hq, hkv, sq, sk, d, st, scale, causal, window, s);
 }
 
 // bfloat16 q, k, v and o: the wgmma kernel; pointers and the strides of q,
@@ -920,17 +981,20 @@ int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v, void*
   const Strides st = unpack(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= 64) return launch_wgmma<64>(q, k, v, o, b, hq, hkv, sq, sk, d, st, scale, causal, window, s);
-  return launch_wgmma<128>(q, k, v, o, b, hq, hkv, sq, sk, d, st, scale, causal, window, s);
+  if (d <= 128) return launch_wgmma<128>(q, k, v, o, b, hq, hkv, sq, sk, d, st, scale, causal, window, s);
+  return launch_wgmma<256>(q, k, v, o, b, hq, hkv, sq, sk, d, st, scale, causal, window, s);
 }
 
 // Dynamic shared memory one block of a route takes at this head_dim
 // (ptxas -v does not report dynamic shared memory); route 0 = simt, 1 = wgmma.
 int flash_attention_smem_bytes(int route, int d) {
-  if (route == 1) return d <= 64 ? wg::smem_bytes<64>() : wg::smem_bytes<128>();
+  if (route == 1)
+    return d <= 64 ? wg::smem_bytes<64>() : (d <= 128 ? wg::smem_bytes<128>() : wg::smem_bytes<256>());
   if (d <= 16) return (int)(smem_floats<16>() * sizeof(float));
   if (d <= 32) return (int)(smem_floats<32>() * sizeof(float));
   if (d <= 64) return (int)(smem_floats<64>() * sizeof(float));
-  return (int)(smem_floats<128>() * sizeof(float));
+  if (d <= 128) return (int)(smem_floats<128>() * sizeof(float));
+  return (int)(smem_floats<256>() * sizeof(float));
 }
 
 const char* flash_attention_error_string(int err) {

@@ -15,13 +15,15 @@
 // may change between calls without a host sync in here.
 //
 // The TPU kernel keeps the prefix sums resident in VMEM and streams 1024-hash
-// tiles through a broadcast compare and a row sum on the VPU. Here each block
-// stages cum once in shared memory (E is the executor count, at most
-// MAX_BUCKETS) and each thread maps ITEMS hashes, strided by the block width so
-// that a warp's loads and stores stay coalesced. The count over E reads one
-// shared address per step for the whole warp (a broadcast, no bank conflict).
-// It counts, and does not binary-search, so the result equals the reference's
-// row sum for any cum, monotone or not. CUDA's % truncates toward zero, so a
+// tiles through a broadcast compare and a row sum on the VPU. Here each thread
+// maps ITEMS hashes, strided by the block width so that a warp's loads and
+// stores stay coalesced, and each block walks cum in tiles of CUM_TILE
+// entries staged in shared memory, adding each tile's count to the hashes'
+// running counts: E, the executor count, is any size (PageRank's is 2, one
+// tile). The count reads one shared address per step for the whole warp (a
+// broadcast, no bank conflict). It counts, and does not binary-search, so the
+// result equals the reference's row sum for any cum: capacities may be zero,
+// so cum is only non-decreasing. CUDA's % truncates toward zero, so a
 // negative remainder is lifted by total, as jnp.mod and np.mod do.
 //
 // Bound on an H100: bytes. Each hash is read once and each bucket written
@@ -35,33 +37,44 @@ namespace {
 
 constexpr int NT = 256;             // threads per block
 constexpr int ITEMS = 4;            // hashes per thread, NT apart
-constexpr int MAX_BUCKETS = 1024;   // 4 KB of shared memory for cum
+constexpr int CUM_TILE = 1024;      // prefix sums per shared-memory tile (4 KB)
 
 __global__ void __launch_bounds__(NT)
 skewed_bucket_kernel(const int* __restrict__ hashes, const int* __restrict__ cum,
                      int* __restrict__ out, long long t, int e) {
-  __shared__ int s_cum[MAX_BUCKETS];
-  for (int i = threadIdx.x; i < e; i += NT) s_cum[i] = cum[i];
-  __syncthreads();
-  const int total = s_cum[e - 1];
+  __shared__ int s_cum[CUM_TILE];
+  const int total = __ldg(cum + e - 1);
 
   const long long base = (long long)blockIdx.x * (NT * ITEMS) + threadIdx.x;
-  int h[ITEMS];
+  int r[ITEMS], b[ITEMS];
 #pragma unroll
   for (int k = 0; k < ITEMS; ++k) {   // all loads first: ITEMS in flight
     const long long i = base + (long long)k * NT;
-    h[k] = i < t ? __ldg(hashes + i) : 0;
+    r[k] = i < t ? __ldg(hashes + i) : 0;
+  }
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    r[k] %= total;
+    if (r[k] < 0) r[k] += total;
+    b[k] = 0;
+  }
+  // every thread walks every tile (the barriers), whether or not its hashes
+  // lie past t
+  for (int t0 = 0; t0 < e; t0 += CUM_TILE) {
+    const int n = min(CUM_TILE, e - t0);
+    if (t0 > 0) __syncthreads();      // the previous tile is read no more
+    for (int j = threadIdx.x; j < n; j += NT) s_cum[j] = cum[t0 + j];
+    __syncthreads();
+    for (int j = 0; j < n; ++j) {
+      const int c = s_cum[j];
+#pragma unroll
+      for (int k = 0; k < ITEMS; ++k) b[k] += c <= r[k];
+    }
   }
 #pragma unroll
   for (int k = 0; k < ITEMS; ++k) {
     const long long i = base + (long long)k * NT;
-    if (i < t) {
-      int r = h[k] % total;
-      if (r < 0) r += total;
-      int b = 0;
-      for (int j = 0; j < e; ++j) b += s_cum[j] <= r;
-      out[i] = b;
-    }
+    if (i < t) out[i] = b[k];
   }
 }
 
@@ -70,13 +83,13 @@ skewed_bucket_kernel(const int* __restrict__ hashes, const int* __restrict__ cum
 extern "C" {
 
 // hashes, cum and out: contiguous int32 on the current device; t hashes, e
-// buckets with 1 <= e <= MAX_BUCKETS and cum[e - 1] > 0 (checked by the
-// caller: the value lives on the device). Launches on `stream` and does not
+// >= 1 buckets and cum[e - 1] > 0 (checked by the caller: the value lives on
+// the device). Launches on `stream` and does not
 // synchronise. Returns a cudaError_t: the launch's own error, or
 // cudaErrorInvalidValue for sizes the kernel does not take.
 int skewed_bucket_fwd(const int* hashes, const int* cum, int* out, long long t, int e,
                       void* stream) {
-  if (t < 0 || e < 1 || e > MAX_BUCKETS) return (int)cudaErrorInvalidValue;
+  if (t < 0 || e < 1) return (int)cudaErrorInvalidValue;
   if (t == 0) return (int)cudaSuccess;
   const long long blocks = (t + NT * ITEMS - 1) / (NT * ITEMS);
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;

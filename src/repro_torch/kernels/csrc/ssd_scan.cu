@@ -24,9 +24,12 @@
 // i >= j (above the diagonal it is positive and could overflow, and inf * 0
 // is NaN). A ragged last chunk is masked with zeros: zero dt and x are inert.
 //
-// Two routes, chosen by the wrapper from x's dtype alone:
+// Two routes, chosen by the wrapper from the inputs' dtypes, shapes and
+// layout before any launch:
 //
-// * bfloat16 -> ssd_wgmma_kernel, on the tensor cores. It reads x (b, S, H, P)
+// * bfloat16 x whose layout ssd_scan.wgmma_layout_error accepts (B and C
+//   bf16, P <= 64, N <= 128, multiples of 8, 16 B aligned) ->
+//   ssd_wgmma_kernel, on the tensor cores. It reads x (b, S, H, P)
 //   and B, C (b, S, G, N) in bf16 as the model hands them over (strided views
 //   of one conv output, through TMA tensor maps built from their strides),
 //   dt (b, S, H) and a_log (H,) in fp32, and writes y in bf16 or fp32 and the
@@ -75,7 +78,8 @@
 //   stand between the two. P up to 64 and N up to 128,
 //   each a multiple of 8 (TMA's 16 B strides); smaller P and N are padded
 //   with zeros in the tiles.
-// * float32 -> ssd_scan_kernel, on the CUDA cores (bf16 splits of fp32 x
+// * everything else (float32 x, or bf16 x the tensor-core route cannot
+//   take) -> ssd_scan_kernel, on the CUDA cores (bf16 splits of fp32 x
 //   would need x split too). It takes xdt and dta prepared by the wrapper,
 //   one block per (batch*head, P-slice) with the slice's state in shared
 //   memory. Rows p of the state and columns p of y depend only on column p
@@ -83,7 +87,8 @@
 //   narrows when there are too few (batch, head) pairs to fill the card.
 //   fp32 FMAs on 4 x 4 register tiles, each chunk's B, C and xdt staged once
 //   in shared memory; bound by the bytes of xdt and y in fp32 (~454 MB,
-//   0.1356 ms at the serving shape).
+//   0.1356 ms at the serving shape). N up to 256: at 256 a 64-wide slice
+//   takes 231,172 B of shared memory, one block per SM.
 
 #include <cuda.h>  // CUtensorMap and its enums; libcuda is looked up at run time
 #include <cuda_bf16.h>
@@ -94,6 +99,7 @@ namespace {
 
 constexpr int Q = 64;          // rows per chunk
 constexpr int NT = 256;        // threads per block: a 16 x 16 grid
+constexpr int MAX_STATE = 256; // N
 constexpr int GS = Q + 1;      // padded row of the C B^T tile
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -124,8 +130,10 @@ constexpr int smem_floats(int ps, int np) {
 // Thread (ty, tx) of the 16 x 16 grid owns rows ty + 16 i and columns
 // tx + 16 j of each tile it computes. Row strides of NP + 1 and Q + 1 floats
 // put the 16 rows a half-warp reads in one column on 16 different banks.
+// <= 128 registers up to N 128, where two narrow blocks fit an SM; at N 256
+// the tiles take most of an SM's shared memory, so one block
 template <typename T, int PS, int NP>
-__global__ void __launch_bounds__(NT, 2)  // <= 128 registers: two narrow blocks fit an SM
+__global__ void __launch_bounds__(NT, (NP > 128 ? 1 : 2))
 ssd_scan_kernel(Args a) {
   constexpr int NS = NP + 1;
   constexpr int PB = PS / 16;
@@ -341,7 +349,7 @@ int slice_width(int batch, int heads, int p) {
   return ps;
 }
 
-int state_width(int n) { return n <= 32 ? 32 : (n <= 64 ? 64 : 128); }
+int state_width(int n) { return n <= 32 ? 32 : (n <= 64 ? 64 : (n <= 128 ? 128 : 256)); }
 
 template <typename T, int PS, int NP>
 cudaError_t launch(const Args& a, int batch, cudaStream_t stream) {
@@ -360,7 +368,8 @@ cudaError_t dispatch_state(const Args& a, int batch, cudaStream_t stream) {
   switch (state_width(a.n)) {
     case 32: return launch<T, PS, 32>(a, batch, stream);
     case 64: return launch<T, PS, 64>(a, batch, stream);
-    default: return launch<T, PS, 128>(a, batch, stream);
+    case 128: return launch<T, PS, 128>(a, batch, stream);
+    default: return launch<T, PS, 256>(a, batch, stream);
   }
 }
 
@@ -1025,7 +1034,7 @@ int ssd_scan_fwd(const float* xdt, const float* dta, const void* b, const void* 
                  int heads, int groups, int p, int n, long long b_bs, long long b_ss,
                  long long c_bs, long long c_ss, int dtype, void* stream) {
   if (batch < 1 || seq < 0 || heads < 1 || groups < 1 || heads % groups != 0 || p < 1 ||
-      n < 1 || n > 128 || (dtype != 0 && dtype != 1) ||
+      n < 1 || n > MAX_STATE || (dtype != 0 && dtype != 1) ||
       (long long)batch * heads > 2147483647LL || (p + 15) / 16 > 65535)
     return (int)cudaErrorInvalidValue;
   const Args a{xdt, dta, b, c, init, y, fin, seq, heads, groups, p, n,
@@ -1039,7 +1048,7 @@ int ssd_scan_fwd(const float* xdt, const float* dta, const void* b, const void* 
 // P-slice width, plan[2] padded state width, plan[3] dynamic shared memory
 // bytes of one block (ptxas -v does not report dynamic shared memory).
 int ssd_scan_plan(int batch, int heads, int p, int n, int* plan) {
-  if (batch < 1 || heads < 1 || p < 1 || n < 1 || n > 128) return (int)cudaErrorInvalidValue;
+  if (batch < 1 || heads < 1 || p < 1 || n < 1 || n > MAX_STATE) return (int)cudaErrorInvalidValue;
   const int ps = slice_width(batch, heads, p);
   const int np = state_width(n);
   plan[0] = Q;

@@ -11,14 +11,16 @@ of inputs and output, about 400 FLOP per byte, so it is bound by
 operations: 0.0869 ms at the bf16 tensor-core peak, against ~0.063 ms to
 move the bytes.
 
-The dtype alone picks the route (``route_for``):
+The dtype alone picks the route (``route_for``); both take head dims up
+to 256 (gemma3-12b's):
 
 * ``bfloat16`` -> ``"wgmma"``: both products on the tensor cores
   (``wgmma.mma_async``, fp32 accumulators in registers, P fed from registers
   and its softmax run while the previous tile's PV product computes); a
   persistent grid of one block per SM over (batch x head, 128-query tile)
   items, heaviest first; a producer warpgroup loads Q and 128-key K/V tiles
-  by TMA into a two-stage ring. TMA needs 16 B aligned base pointers and
+  (64-key at head_dim 256, ``wgmma_block_k``) by TMA into a two-stage ring.
+  TMA needs 16 B aligned base pointers and
   (batch, head, seq) strides; ``tma_layout_error`` names the first violation
   and the wrapper raises on it, never copying.
 * ``float32`` -> ``"simt"``: fp32 on the CUDA cores (tensor cores would take
@@ -43,14 +45,14 @@ from repro_torch.kernels import build
 launches = 0
 launches_by_route = {"wgmma": 0, "simt": 0}
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 MAX_Q_TILES = 65535            # grid.y limit; 64 query rows per simt tile
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "simt"}
 _ROUTE_CODES = {"simt": 0, "wgmma": 1}
 
 # the wgmma route's tiles, as csrc/flash_attention.cu lays them out
 WGMMA_BLOCK_Q = 128            # query rows per block (two warpgroups of 64)
-WGMMA_BLOCK_K = 128            # keys per kv tile
+WGMMA_BLOCK_K = 128            # keys per kv tile (64 at head_dim > 128)
 WGMMA_STAGES = 2               # K/V ring depth
 WGMMA_COLS = 64                # bf16 per 128 B swizzled shared-memory row
 TMA_ALIGN = 16                 # bytes: base pointers and strides
@@ -65,14 +67,21 @@ def route_for(dtype: torch.dtype) -> str:
                          "or bfloat16") from None
 
 
+def wgmma_block_k(head_dim: int) -> int:
+    """Keys per K/V tile of the wgmma route: 128, or 64 above head_dim 128,
+    where a two-stage ring of 128-key tiles would not fit shared memory."""
+    return WGMMA_BLOCK_K if head_dim <= 2 * WGMMA_COLS else WGMMA_BLOCK_K // 2
+
+
 def wgmma_smem_bytes(head_dim: int) -> int:
     """Dynamic shared memory of one wgmma block: 1 KB of alignment slack, Q,
     ``WGMMA_STAGES`` x (K + V) in 64-column blocks of 128 B rows, and 128 B
-    of mbarriers. Head dims up to 64 take one column block, larger ones two."""
-    blocks = 1 if head_dim <= WGMMA_COLS else 2
+    of mbarriers. Head dims up to 64 take one column block, up to 128 two,
+    up to 256 four."""
+    blocks = 1 if head_dim <= WGMMA_COLS else (2 if head_dim <= 2 * WGMMA_COLS else 4)
     row = WGMMA_COLS * 2
     return (1024 + blocks * row * WGMMA_BLOCK_Q
-            + WGMMA_STAGES * 2 * blocks * row * WGMMA_BLOCK_K + 128)
+            + WGMMA_STAGES * 2 * blocks * row * wgmma_block_k(head_dim) + 128)
 
 
 def kv_tile_range(q0: int, sk: int, causal: bool, window: int,

@@ -42,10 +42,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
     x: (batch, S, H, P); dt: (batch, S, H) (already softplus'd); a_log:
     (H,); B/C: (batch, S, G, N). Returns (y in x's dtype, final state
-    fp32). On the card x's dtype picks the kernel: bf16 x goes to the
-    tensor-core route, which reads x, dt, a_log, B and C where they lie and
-    computes a = -exp(a_log), dt * a and x * dt itself; fp32 x goes to the
-    CUDA-core route, whose wrapper computes them. Both seed the state with
+    fp32). On the card ``ssd_scan.route_for`` picks the kernel from the
+    inputs' dtypes, shapes and layout: bf16 x, B and C with P <= 64 and
+    N <= 128 go to the tensor-core route, which reads x, dt, a_log, B and C
+    where they lie and computes a = -exp(a_log), dt * a and x * dt itself;
+    everything else goes to the CUDA-core route, whose wrapper computes
+    them. Both seed the state with
     ``init_state`` instead of folding it in afterwards. ``chunk`` is the
     reference's tile length; the kernels mask the ragged chunk and pick
     their own length (chunked SSD is exact, so only rounding depends on it).
@@ -59,13 +61,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
 
 def skewed_bucket(hashes: torch.Tensor, capacities: torch.Tensor) -> torch.Tensor:
-    """Algorithm 1 bucket map (paper §7). hashes (T,), capacities (E,) on one
-    device; returns (T,) int32 bucket ids in [0, E).
+    """Algorithm 1 bucket map (paper §7). hashes (T,) of any integer type,
+    capacities (E,), any E >= 1, on one device; returns (T,) int32 bucket
+    ids in [0, E).
 
-    On the card the kernel takes int32 hashes and raises on any other type
-    (the reference casts them to int32); the capacities are cast to int32
-    here, as the reference wrapper does.
+    Hashes and capacities are cast to int32 here, as the reference's
+    ``astype(jnp.int32)`` does: a wider hash wraps modulo 2**32.
     """
     if hashes.device.type == "cpu":
         return ref.skewed_bucket_ref(hashes, capacities)
-    return _sb.skewed_bucket(hashes, capacities.to(torch.int32).contiguous())
+    return _sb.skewed_bucket(hashes.to(torch.int32).contiguous(),
+                             capacities.to(torch.int32).contiguous())

@@ -5,9 +5,11 @@ Replaces ``repro/kernels/ssd_scan.py::ssd_scan``, the Pallas TPU kernel
 ``repro/kernels/ops.py::ssd_scan``; the source is ``csrc/ssd_scan.cu``,
 built by ``build.py`` and called through its C interface with ``ctypes``.
 
-The dtype of x alone picks the route (``route_for``):
+The route is chosen before any launch from the inputs' dtypes, shapes and
+layout (``route_for``):
 
-* ``bfloat16`` -> ``"wgmma"``: every product on the tensor cores
+* bf16 x that ``wgmma_layout_error`` accepts -> ``"wgmma"``: every product
+  on the tensor cores
   (``wgmma.mma_async``, fp32 accumulators in registers). The kernel reads
   x, B and C in bf16 where they lie (TMA tensor maps built from their
   strides, so the model's strided views of its conv output need no copy),
@@ -22,15 +24,17 @@ The dtype of x alone picks the route (``route_for``):
   (b 10, S 1024, H 80, P 64, N 128): ~244 MB for the whole call, 0.0730
   ms at 3.35 TB/s (one 8192-token prompt: 0.0529 ms), and ~80 GFLOP of
   issued bf16 products, ~0.08 ms. It takes P <= 64 and N <= 128, each a
-  multiple of 8, 16 B aligned base pointers and (batch, seq, head) strides
-  of 16 B multiples (``wgmma_layout_error`` names the first violation; the
-  wrapper raises on it, never copying).
-* ``float32`` -> ``"simt"``: the wrapper computes a = -exp(a_log),
+  multiple of 8, B and C in bf16, 16 B aligned base pointers and (batch,
+  seq, head) strides of 16 B multiples (``wgmma_layout_error`` names the
+  first violation).
+* everything else, fp32 x or bf16 x the tensor-core route cannot take ->
+  ``"simt"``: the wrapper computes a = -exp(a_log),
   dta = dt a and xdt = x dt in fp32, and the kernel runs fp32 on the CUDA
   cores (bf16 splits of fp32 x would need x split too): one block per
   (batch x head, P-slice) loops over 64-row chunks with its slice of the
-  state in shared memory. Bound by the bytes of xdt and y in fp32 (~454 MB,
-  0.1356 ms at the serving shape).
+  state in shared memory; any P, N up to 256, B and C in fp32 or bf16
+  (cast to fp32 here when they differ). Bound by the bytes of xdt and y in
+  fp32 (~454 MB, 0.1356 ms at the serving shape).
 
 A failed build or launch raises; nothing retries the other route.
 ``launches`` counts the launches made by this wrapper and
@@ -50,8 +54,7 @@ from repro_torch.kernels import build
 launches = 0
 launches_by_route = {"wgmma": 0, "simt": 0}
 
-MAX_STATE = 128
-ROUTES = {torch.bfloat16: "wgmma", torch.float32: "simt"}
+MAX_STATE = 256               # N, as csrc/ssd_scan.cu's simt route
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # the wgmma route's tiles, as csrc/ssd_scan.cu lays them out
@@ -61,13 +64,17 @@ WGMMA_DIM_MULTIPLE = 8         # P and N: 16 B of bf16
 TMA_ALIGN = 16                 # bytes: base pointers and strides
 
 
-def route_for(dtype: torch.dtype) -> str:
-    """The kernel x's dtype runs on: ``"wgmma"`` for bf16, ``"simt"`` for fp32."""
-    try:
-        return ROUTES[dtype]
-    except KeyError:
-        raise ValueError(f"ssd_scan kernel: x dtype {dtype} is not float32 or "
-                         "bfloat16") from None
+def route_for(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, B: torch.Tensor,
+              C: torch.Tensor) -> str:
+    """The kernel these inputs run on, from their dtypes, shapes and layout
+    alone (any device): ``"wgmma"`` for bf16 x that ``wgmma_layout_error``
+    accepts, ``"simt"`` for every other float32 or bfloat16 x."""
+    if x.dtype not in _DTYPE_CODES:
+        raise ValueError(f"ssd_scan kernel: x dtype {x.dtype} is not float32 or "
+                         "bfloat16")
+    if x.dtype == torch.bfloat16 and wgmma_layout_error(x, dt, a_log, B, C) is None:
+        return "wgmma"
+    return "simt"
 
 
 @functools.lru_cache(maxsize=None)
@@ -160,8 +167,8 @@ def tma_strides(t: torch.Tensor) -> tuple:
 def wgmma_layout_error(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                        B: torch.Tensor, C: torch.Tensor) -> Optional[str]:
     """Why the wgmma route cannot take these inputs as they lie in memory,
-    or None. Looks only at dtypes, shapes, strides and addresses, so it
-    runs on tensors of any device."""
+    or None. Looks only at dtypes, shapes, strides and addresses, never at
+    values, so it runs on tensors of any device."""
     p, n = x.shape[-1], B.shape[-1]
     for name, t in (("x", x), ("B", B), ("C", C)):
         if t.dtype != torch.bfloat16:
@@ -280,14 +287,16 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, B: torch.Te
     init_state (b, H, P, N) float32 or None (zeros). Returns (y in
     ``y_dtype``, default x's dtype; final state (b, H, P, N) float32).
 
-    x's dtype picks the route. S need not be a multiple of any chunk: the
-    kernels mask the ragged chunk. Raises on input the route does not take
-    and on a failed build or launch.
+    ``route_for`` picks the route before the launch. S need not be a
+    multiple of any chunk: the kernels mask the ragged chunk. Raises on
+    input neither route takes and on a failed build or launch.
     """
-    if route_for(x.dtype) == "wgmma":
+    if route_for(x, dt, a_log, B, C) == "wgmma":
         return wgmma(x, dt, a_log, B, C, init_state=init_state, y_dtype=y_dtype)
     a = -torch.exp(a_log.float())
     dta = (dt.float() * a).contiguous()
     xdt = (x.float() * dt.float()[..., None]).contiguous()
+    if B.dtype != C.dtype or B.dtype not in _DTYPE_CODES:
+        B, C = B.float(), C.float()
     y, fin = simt(xdt, dta, B, C, init_state=init_state)
-    return (y if y_dtype in (None, torch.float32) else y.to(y_dtype)), fin
+    return y.to(x.dtype if y_dtype is None else y_dtype), fin

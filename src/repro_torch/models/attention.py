@@ -14,6 +14,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.kernels import ops as kops
@@ -64,12 +65,46 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, sq, hq, dh)
 
 
+def _q_block(qt: torch.Tensor, kb: torch.Tensor, vb: torch.Tensor, q0: int, sk: int,
+             causal: bool, window: int, scale: float) -> torch.Tensor:
+    """One query block's online softmax over every kv block.
+    qt: (B, Hkv, g, bq, D); kb/vb: (nk, B, Hkv, bk, D)."""
+    b, hkv, g, bq, d = qt.shape
+    bk = kb.shape[3]
+    qt = qt.float()
+    iq = torch.arange(bq, device=qt.device)[:, None]
+    ik = torch.arange(bk, device=qt.device)[None, :]
+    m = torch.full((b, hkv, g, bq, 1), NEG_INF, device=qt.device)
+    denom = torch.zeros((b, hkv, g, bq, 1), device=qt.device)
+    acc = torch.zeros((b, hkv, g, bq, d), device=qt.device)
+    for ki in range(kb.shape[0]):
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qt, kb[ki].float()) * scale
+        kpos = ki * bk + ik
+        rel = q0 + iq - kpos
+        ok = kpos < sk
+        if causal:
+            ok = ok & (rel >= 0)
+        if window > 0:
+            ok = ok & (rel < window)
+        s = torch.where(ok, s, NEG_INF)
+        m_n = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_n)
+        alpha = torch.exp(m - m_n)
+        denom = denom * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhgqk,bhkd->bhgqd", p, vb[ki].float())
+        m = m_n
+    return acc / torch.where(denom == 0.0, 1.0, denom)
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool, window: int, scale: float,
                       block_q: int = 512, block_k: int = 1024) -> torch.Tensor:
-    """Streaming online-softmax attention (forward only): the dense
-    (Sq x Sk) logits never materialize. Same math as
-    ``dot_product_attention`` with arange positions.
+    """Streaming online-softmax attention: the dense (Sq x Sk) logits never
+    materialize. Same math as ``dot_product_attention`` with arange
+    positions. When gradients are recorded, each query block runs under
+    ``torch.utils.checkpoint``: the backward recomputes its probability
+    tiles instead of keeping them, as the reference's ``nothing_saveable``
+    checkpoints do.
 
     q: (B, Sq, Hq, D); k/v: (B, Sk, Hkv, D) -> (B, Sq, Hq, D).
     """
@@ -90,33 +125,13 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qb = q.reshape(b, nq, bq, hkv, g, d).permute(1, 0, 3, 4, 2, 5)
     kb = k.reshape(b, nk, bk, hkv, d).permute(1, 0, 3, 2, 4)
     vb = v.reshape(b, nk, bk, hkv, d).permute(1, 0, 3, 2, 4)
-    iq = torch.arange(bq, device=q.device)[:, None]
-    ik = torch.arange(bk, device=q.device)[None, :]
-
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
     outs = []
     for qi in range(nq):
-        qt = qb[qi].float()                                # (B,Hkv,g,bq,D)
-        m = torch.full((b, hkv, g, bq, 1), NEG_INF, device=q.device)
-        denom = torch.zeros((b, hkv, g, bq, 1), device=q.device)
-        acc = torch.zeros((b, hkv, g, bq, d), device=q.device)
-        for ki in range(nk):
-            s = torch.einsum("bhgqd,bhkd->bhgqk", qt, kb[ki].float()) * scale
-            kpos = ki * bk + ik
-            rel = qi * bq + iq - kpos
-            ok = kpos < sk
-            if causal:
-                ok = ok & (rel >= 0)
-            if window > 0:
-                ok = ok & (rel < window)
-            s = torch.where(ok, s, NEG_INF)
-            m_n = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-            p = torch.exp(s - m_n)
-            alpha = torch.exp(m - m_n)
-            denom = denom * alpha + p.sum(dim=-1, keepdim=True)
-            acc = acc * alpha + torch.einsum("bhgqk,bhkd->bhgqd", p,
-                                             vb[ki].float())
-            m = m_n
-        outs.append(acc / torch.where(denom == 0.0, 1.0, denom))
+        args = (qb[qi], kb, vb, qi * bq, sk, causal, window, scale)
+        outs.append(checkpoint(_q_block, *args, use_reentrant=False) if grad
+                    else _q_block(*args))
     out = torch.stack(outs)                                # (nq,B,Hkv,g,bq,D)
     out = out.permute(1, 0, 4, 2, 3, 5).reshape(b, sq_p, hq, d)
     return out[:, :sq].to(q.dtype)

@@ -15,6 +15,7 @@ from typing import Dict, List, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -92,12 +93,29 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig, *, dtype=torch.bfloat16,
                          for i in range(cfg.n_layers))
 
 
+REMATS = ("none", "dots", "full")
+
+
 def stack_apply(params: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
-                positions: torch.Tensor, *,
-                impl: str = "xla") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x, moe aux loss); the aux loss is zero until MoE is ported."""
+                positions: torch.Tensor, *, impl: str = "xla",
+                remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x, moe aux loss); the aux loss is zero until MoE is ported.
+
+    ``remat`` "full" or "dots" runs each layer under
+    ``torch.utils.checkpoint`` when gradients are being recorded: the
+    backward recomputes the layer from its input instead of keeping its
+    activations. The reference checkpoints each layer group with
+    ``nothing_saveable`` ("full") or saves the matrix products ("dots");
+    here both recompute everything, which changes memory, not results."""
+    if remat not in REMATS:
+        raise ValueError(f"remat must be one of {REMATS}: {remat!r}")
+    recompute = remat != "none" and torch.is_grad_enabled()
     for i, p in enumerate(params):
-        x = _layer_apply(p, x, cfg, i, positions, impl=impl)
+        if recompute:
+            x = checkpoint(_layer_apply, p, x, cfg, i, positions, impl=impl,
+                           use_reentrant=False)
+        else:
+            x = _layer_apply(p, x, cfg, i, positions, impl=impl)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

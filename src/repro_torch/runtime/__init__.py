@@ -1,1 +1,2 @@
-"""Serving runtime of the port (prefill/decode steps, HeMT batching)."""
+"""Runtime of the port: serving (prefill/decode steps, HeMT batching) and
+HeMT-DP training (train/grain/apply steps, ``HeMTTrainer``)."""

@@ -1,6 +1,4 @@
-"""The paper's multi-stage evaluation workloads (§7), in PyTorch.
-
-Ported so far: PageRank (Fig 18). K-means (Fig 17) stays in the JAX
-package until a later slice.
-"""
+"""The paper's multi-stage evaluation workloads (§7), in PyTorch: K-means
+(Fig 17) and PageRank (Fig 18)."""
+from repro_torch.workloads.kmeans import KMeansJob, kmeans_reference  # noqa: F401
 from repro_torch.workloads.pagerank import PageRankJob, pagerank_reference  # noqa: F401

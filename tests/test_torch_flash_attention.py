@@ -157,11 +157,13 @@ def test_tma_layout_error(make, want):
 
 
 @pytest.mark.parametrize("head_dim,want", [(16, 83_072), (32, 83_072), (64, 83_072),
-                                           (65, 164_992), (128, 164_992)])
+                                           (65, 164_992), (128, 164_992),
+                                           (129, 197_760), (256, 197_760)])
 def test_wgmma_smem_bytes(head_dim, want):
-    """Q plus a two-stage K/V ring of 128-row tiles in 64-column blocks of
-    128 B rows, 1 KB of alignment slack and the mbarriers; it fits one block
-    per SM (227 KB)."""
+    """Q plus a two-stage K/V ring of 128-row tiles (64-row above head_dim
+    128) in 64-column blocks of 128 B rows, 1 KB of alignment slack and the
+    mbarriers; it fits one block per SM (227 KB). At head_dim 256: 1024 +
+    Q 64 KB + 2 x (K + V) x 32 KB + 128."""
     assert fa.wgmma_smem_bytes(head_dim) == want
     assert want <= 232_448
 
@@ -259,3 +261,50 @@ def test_flash_wgmma_raises_on_misaligned_input_on_card():
         q12 = torch.zeros((1, 2, 64, 12), dtype=torch.bfloat16, device=dev)
         fa.flash_attention(q12, q12, q12)
     assert fa.launches == before
+
+
+# --- head_dim 256 (gemma3-12b) ----------------------------------------------------------
+
+D256_CASES = [(1, 4, 2, 80, 80, 256), (1, 2, 1, 33, 65, 256)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d", D256_CASES)
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_flash_attention_head_dim_256_matches_pallas(jx, b, hq, hkv, sq, sk, d, causal,
+                                                     window):
+    """The plain version (the CPU path of both routes) at gemma3's head_dim
+    against the Pallas kernel in interpret mode."""
+    arrays = _inputs(13, b, hq, hkv, sq, sk, d)
+    jq, jk, jv = (jx.jnp.asarray(a) for a in arrays)
+    want = np.asarray(jx.kernel(jq, jk, jv, causal=causal, window=window, block_q=32,
+                                block_k=32, interpret=True), np.float32)
+    tq, tk, tv = (torch.from_numpy(a) for a in arrays)
+    got = ref.flash_attention_ref(tq, tk, tv, causal=causal, window=window)
+    np.testing.assert_allclose(_np(got), want, atol=TOL["float32"], rtol=1e-2)
+
+
+@pytest.mark.parametrize("head_dim,block_k", [(64, 128), (128, 128), (129, 64), (256, 64)])
+def test_wgmma_block_k(head_dim, block_k):
+    assert fa.wgmma_block_k(head_dim) == block_k
+
+
+@pytest.mark.gpu
+def test_flash_head_dim_256_on_card():
+    """Both routes at head_dim 256: bf16 on wgmma with 64-key tiles, fp32 on
+    the CUDA cores; ragged lengths around the 64-key tiles and a window."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for s in (1, 63, 65, 129, 700):
+        for (causal, window), dtype in [(m, dt) for m in MASKS for dt in TORCH_DTYPES]:
+            tq, tk, tv = (torch.from_numpy(a).to(dev, TORCH_DTYPES[dtype])
+                          for a in _inputs(s, 2, 4, 2, s, s, 256))
+            route = fa.route_for(TORCH_DTYPES[dtype])
+            before = dict(fa.launches_by_route)
+            got = fa.flash_attention(tq, tk, tv, causal=causal, window=window)
+            assert fa.launches_by_route == {**before, route: before[route] + 1}
+            want = ref.flash_attention_ref(tq, tk, tv, causal=causal, window=window)
+            torch.cuda.synchronize()
+            np.testing.assert_allclose(_np(got), _np(want), atol=TOL[dtype], rtol=1e-2,
+                                       err_msg=f"s={s} {(causal, window)} {dtype}")

@@ -122,3 +122,53 @@ def test_skewed_bucket_kernel_matches_plain_on_card():
         torch.cuda.synchronize()
         assert torch.equal(got, want), (len(hashes), list(caps))
         assert np.array_equal(got.cpu().numpy(), bucket_of(hashes, caps))
+
+
+# --- any integer hash, any number of capacities --------------------------------------
+
+def _wide_caps(seed, e):
+    caps = np.random.default_rng(seed).integers(0, 1000, e)
+    caps[np.random.default_rng(seed + 1).random(e) < 0.1] = 0     # zero capacities
+    return caps.astype(np.int32)
+
+
+@pytest.mark.parametrize("e", [1025, 4096])
+def test_wide_capacities_match_jax(jx, e):
+    """More capacities than one 1024-entry shared-memory tile of the kernel,
+    some zero, so the prefix sums repeat values."""
+    caps = _wide_caps(e, e)
+    got = _check_all(jx, _hashes(e, 3000, INT32_MIN, INT32_MAX + 1), caps)
+    assert got.min() >= 0 and got.max() < e
+
+
+def test_int64_hashes_wrap_to_int32_like_the_reference(jx):
+    """The reference's ``astype(jnp.int32)`` wraps a wider hash modulo 2**32;
+    ``ops.skewed_bucket`` casts the same way on every device."""
+    rng = np.random.default_rng(5)
+    hashes = np.concatenate([np.asarray([2**31, 2**31 + 5, 2**32 + 7, -2**31 - 3, 2**40 + 1]),
+                             rng.integers(2**31, 2**40, 2000),
+                             rng.integers(-2**40, 2**40, 2000)]).astype(np.int64)
+    for caps in (np.asarray([700, 297], np.int32), _wide_caps(9, 4096)):
+        got = ops.skewed_bucket(torch.from_numpy(hashes), torch.from_numpy(caps)).numpy()
+        assert np.array_equal(got, bucket_of(hashes.astype(np.int32), caps))
+        want = jx.ops.skewed_bucket(jx.jnp.asarray(hashes), jx.jnp.asarray(caps),
+                                    interpret=True)
+        assert np.array_equal(got, np.asarray(want))
+
+
+@pytest.mark.gpu
+def test_skewed_bucket_wide_and_int64_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(6)
+    for hashes, caps in ((rng.integers(INT32_MIN, INT32_MAX, 70_000).astype(np.int32),
+                          _wide_caps(1, 4096)),
+                         (rng.integers(-2**40, 2**40, 70_000), _wide_caps(2, 4096)),
+                         (rng.integers(2**31, 2**40, 5000), np.asarray([700, 297], np.int32))):
+        h, c = torch.from_numpy(hashes).to(dev), torch.from_numpy(caps).to(dev)
+        before = sb.launches
+        got = ops.skewed_bucket(h, c)
+        assert sb.launches == before + 1
+        assert torch.equal(got, ref.skewed_bucket_ref(h, c))
+        assert np.array_equal(got.cpu().numpy(), bucket_of(hashes.astype(np.int32), caps))

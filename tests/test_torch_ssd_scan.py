@@ -222,10 +222,13 @@ def test_wgmma_route_model_needs_the_splits():
 
 
 def test_route_for_picks_by_dtype():
-    assert ssd.route_for(torch.bfloat16) == "wgmma"
-    assert ssd.route_for(torch.float32) == "simt"
+    """bf16 x the tensor-core route takes goes there; fp32 x to the CUDA
+    cores; other dtypes raise. Chosen from the tensors' metadata alone."""
+    x, dt, a_log, B, C = _model_views()
+    assert ssd.route_for(x, dt, a_log, B, C) == "wgmma"
+    assert ssd.route_for(x.float(), dt, a_log, B, C) == "simt"
     with pytest.raises(ValueError, match="float16"):
-        ssd.route_for(torch.float16)
+        ssd.route_for(x.half(), dt, a_log, B, C)
 
 
 def _model_views(bsz=2, s=16, h=4, p=16, g=1, n=16, extra=0):
@@ -354,3 +357,71 @@ def test_ssd_wgmma_route_matches_plain_on_card():
     want_y, want_f = ref.ssd_scan_ref(x.float(), dt, a_log, B, C)
     np.testing.assert_allclose(_np(got_y), _np(want_y), atol=ATOL)
     np.testing.assert_allclose(_np(got_f), _np(want_f), atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# routing by shape: bf16 x the tensor-core route cannot take goes to the
+# CUDA cores, chosen from the tensors' metadata before any launch
+
+NARROW = [("P 80", (2, 64, 4, 80, 1, 64), torch.bfloat16),
+          ("N 256", (2, 64, 4, 64, 1, 256), torch.bfloat16),
+          ("P 12", (2, 64, 4, 12, 1, 16), torch.bfloat16),
+          ("fp32 B/C", (2, 64, 4, 64, 1, 128), torch.float32)]
+
+
+@pytest.mark.parametrize("name,shape,bc_dtype", NARROW, ids=[n[0] for n in NARROW])
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_route_for_sends_narrow_bf16_to_the_cuda_cores(name, shape, bc_dtype, device):
+    """On CPU tensors and on meta tensors, which hold no values at all: the
+    route depends on dtypes, shapes and strides only."""
+    bsz, s, h, p, g, n = shape
+    x = torch.zeros((bsz, s, h, p), dtype=torch.bfloat16, device=device)
+    dt = torch.zeros((bsz, s, h), device=device)
+    a_log = torch.zeros(h, device=device)
+    B = torch.zeros((bsz, s, g, n), dtype=bc_dtype, device=device)
+    assert ssd.wgmma_layout_error(x, dt, a_log, B, B) is not None
+    assert ssd.route_for(x, dt, a_log, B, B) == "simt"
+    wide = torch.zeros((bsz, s, h, 64), dtype=torch.bfloat16, device=device)
+    ok = torch.zeros((bsz, s, g, 128), dtype=torch.bfloat16, device=device)
+    assert ssd.route_for(wide, dt, a_log, ok, ok) == "wgmma"
+
+
+@pytest.mark.parametrize("name,shape,bc_dtype", NARROW, ids=[n[0] for n in NARROW])
+def test_narrow_bf16_matches_jax(jx, name, shape, bc_dtype):
+    """The plain version (the CPU path) on the narrow cases against the
+    JAX package's Pallas kernel in interpret mode, with bf16 x."""
+    arrays = _inputs(21, *shape, True)
+    x, dt, a_log, B, C, init = _torch(arrays)
+    x, B, C = x.bfloat16(), B.to(bc_dtype), C.to(bc_dtype)
+    got_y, got_f = ops.ssd_scan(x, dt, a_log, B, C, chunk=16, init_state=init)
+    jdt = {torch.bfloat16: jx.jnp.bfloat16, torch.float32: jx.jnp.float32}
+    want_y, want_f = jx.ops.ssd_scan(
+        jx.jnp.asarray(_np(x), jx.jnp.bfloat16), jx.jnp.asarray(arrays[1]),
+        jx.jnp.asarray(arrays[2]), jx.jnp.asarray(_np(B), jdt[bc_dtype]),
+        jx.jnp.asarray(_np(C), jdt[bc_dtype]), chunk=16,
+        init_state=jx.jnp.asarray(arrays[5]), interpret=True)
+    np.testing.assert_allclose(_np(got_f), np.asarray(want_f, np.float32), atol=ATOL)
+    np.testing.assert_allclose(_np(got_y), np.asarray(want_y, np.float32), atol=2e-2,
+                               rtol=1e-2)
+
+
+@pytest.mark.gpu
+def test_ssd_narrow_bf16_on_card():
+    """The narrow cases on the card: routed to the CUDA cores, held at the
+    fp32 route's tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    for name, shape, bc_dtype in NARROW:
+        for with_init in (False, True):
+            x, dt, a_log, B, C, init = _torch(_inputs(23, *shape, with_init), dev)
+            x, B, C = x.bfloat16(), B.to(bc_dtype), C.to(bc_dtype)
+            before = dict(ssd.launches_by_route)
+            y, f = ssd.ssd_scan(x, dt, a_log, B, C, init_state=init, y_dtype=torch.float32)
+            assert ssd.launches_by_route == {**before, "simt": before["simt"] + 1}, name
+            y16, _ = ops.ssd_scan(x, dt, a_log, B, C, init_state=init)
+            assert y16.dtype == torch.bfloat16
+            want_y, want_f = ref.ssd_scan_ref(x.float(), dt, a_log, B, C, init_state=init)
+            torch.cuda.synchronize()
+            np.testing.assert_allclose(_np(y), _np(want_y), atol=ATOL, err_msg=name)
+            np.testing.assert_allclose(_np(f), _np(want_f), atol=ATOL, err_msg=name)
