@@ -7,11 +7,14 @@ an ``nn.ParameterDict``; one that also nests a dict (the SSM mixer's
 ``gate_norm``) becomes a ``ParamTree``. Leaves here are numpy arrays; bf16
 leaves arrive either as ml_dtypes ``bfloat16`` arrays or as their
 ``uint16`` bit view (the reference checkpointer's npz convention) and move
-bit-exactly.
+bit-exactly. ``reference_paths`` is the one statement of the layout: the
+converter and the checkpointer (``repro_torch.checkpoint``) both go
+through it. A model built here or by ``models.model.init_params`` records
+its ``layer_period``, so the layout can be recovered from the model alone.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -54,12 +57,24 @@ def _params(tree: Tree, device: torch.device,
                       for k, a in tree.items()})
 
 
-def _stacked(mods) -> Tree:
-    """The same module of each layer in a group -> leaves stacked along a
-    leading axis, nested modules recursed into."""
-    return {k: _stacked([m[k] for m in mods]) if isinstance(mods[0][k], nn.Module)
-            else np.stack([_to_numpy(m[k]) for m in mods])
-            for k in mods[0].keys()}
+def reference_paths(model: nn.Module, period: int) -> Dict[Tuple[str, ...], List[str]]:
+    """Each leaf of the reference's parameter tree, by key path -> the port's
+    parameter names it holds. A ``stack`` leaf holds layers ``j, j + period,
+    ...`` (stacked along its leading ``(n_groups,)`` axis, in that order)
+    under ``("stack", f"sub{j}", ...)``; any other leaf holds one name."""
+    paths: Dict[Tuple[str, ...], List[str]] = {}
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "stack":
+            key = ("stack", f"sub{int(parts[1]) % period}", *parts[2:])
+        else:
+            key = tuple(parts)
+        paths.setdefault(key, []).append(name)
+    return paths
+
+
+def is_stacked(path: Tuple[str, ...]) -> bool:
+    return path[0] == "stack"
 
 
 def from_jax_params(tree: Tree, cfg: ModelConfig, *,
@@ -80,15 +95,19 @@ def from_jax_params(tree: Tree, cfg: ModelConfig, *,
     for key in ("embed", "final_norm", "unembed"):
         if key in tree:
             model[key] = _params(tree[key], dev)
+    model.layer_period = period
     return model
 
 
 def to_jax_layout(model: nn.ModuleDict, cfg: ModelConfig) -> Tree:
     """The inverse of ``from_jax_params``: numpy leaves, stack leaves
     stacked along ``(n_groups,)``, bf16 as its ``uint16`` bit view."""
-    period = cfg.layer_period
-    tree: Tree = {key: {k: _to_numpy(t) for k, t in model[key].items()}
-                  for key in ("embed", "final_norm", "unembed") if key in model}
-    layers = list(model["stack"])
-    tree["stack"] = {f"sub{j}": _stacked(layers[j::period]) for j in range(period)}
+    named = dict(model.named_parameters())
+    tree: Tree = {}
+    for path, names in reference_paths(model, cfg.layer_period).items():
+        leaves = [_to_numpy(named[n]) for n in names]
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack(leaves) if is_stacked(path) else leaves[0]
     return tree

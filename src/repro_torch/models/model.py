@@ -60,6 +60,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     })
     if not cfg.tie_embeddings:
         p["unembed"] = embedding_init(gen, pv, cfg.d_model, dtype=dt, device=dev)
+    p.layer_period = cfg.layer_period    # the checkpoint layout's stacking
     return p
 
 

@@ -1,29 +1,30 @@
 """HeMT-DP training driver — the paper's scheduler running a *real*
 PyTorch training loop over a fleet of (simulated-speed) slices.
 
-Port of ``repro/runtime/hemt_driver.py`` for the per-step modes. On
-hardware, each slice is an SPMD island running ``grain_step`` k_i times
-between gradient barriers, and elapsed wall-times feed the AR(1)
-estimator. Here the *math* is real (every grain's gradient is computed on
-``device`` and accumulated — the resulting model update equals synchronous
-training on the same global batch), while *time* comes from a calibrated
-virtual clock per slice (piecewise speed profiles, per-grain overhead —
+Port of ``repro/runtime/hemt_driver.py``. On hardware, each slice is an
+SPMD island running ``grain_step`` k_i times between gradient barriers,
+and elapsed wall-times feed the AR(1) estimator. Here the *math* is real
+(every grain's gradient is computed on ``device`` and accumulated — the
+resulting model update equals synchronous training on the same global
+batch), while *time* comes from a calibrated virtual clock per slice
+(piecewise speed profiles, per-grain overhead —
 ``repro_torch.core.simulator.SimNode``), so the paper's completion-time
 comparisons (HeMT vs HomT vs static) reproduce deterministically.
 
 Modes (paper sections):
   hemt        — OA-HeMT: per-slice grain counts ∝ AR(1) speed estimates (§5)
+  oa-hemt     — like hemt, but `run_window` schedules W steps' barriers in
+                ONE resident-calendar pass (per-barrier re-planning from the
+                shared estimator, whole-grain quantum), with fault traces,
+                a fleet monitor and elastic re-planning
   homt        — pull-based microtasking over the grain queue (§3, Claim 1)
   static-even — Spark-default: equal macrotasks, no stealing (§4 baseline)
-
-The reference's windowed mode (``oa-hemt``, ``run_window`` with faults and
-a fleet monitor) needs the resident calendar, fault tolerance, straggler
-detection and elastic re-planning, which are not ported yet.
 
 Hot path: the per-step schedule comes from the fast-path simulation engine
 (closed form for constant-speed slices, event calendar otherwise); the
 step's grains go to the device in one copy and are folded by one
-grain-accumulate call (see ``runtime.train_loop``).
+grain-accumulate call (see ``runtime.train_loop``). The schedule stays on
+the host; the math runs on ``device``.
 """
 from __future__ import annotations
 
@@ -35,16 +36,21 @@ import torch
 
 from repro_torch import devices
 from repro_torch.configs.base import ArchBundle, ModelConfig
+from repro_torch.core.engine import AdaptivePlan, StaticSpec
+from repro_torch.core.faults import RetryPolicy
 from repro_torch.core.partitioner import even_split
 from repro_torch.core.planner import GrainPlanner
+from repro_torch.core.resident import ResidentCalendar, ResidentJob
 from repro_torch.core.simulator import SimNode, SimTask, run_pull_stage, run_static_stage
 from repro_torch.data.grains import GrainSource, plan_grain_ranges
 from repro_torch.data.pipeline import SyntheticCorpus
+from repro_torch.runtime import elastic
+from repro_torch.runtime.ft import Heartbeat
 from repro_torch.runtime.train_loop import (
     TrainState, grain_acc_init, grain_accumulate_cached, make_apply_step,
 )
 
-MODES = ("hemt", "homt", "static-even")
+MODES = ("hemt", "oa-hemt", "homt", "static-even")
 
 
 @dataclass(frozen=True)
@@ -88,8 +94,7 @@ class HeMTTrainer:
                  device: Union[str, torch.device] = "cuda"):
         assert global_batch % grain_batch == 0
         if mode not in MODES:
-            raise ValueError(f"mode must be one of {MODES}: {mode!r} (oa-hemt and "
-                             "run_window are not ported yet)")
+            raise ValueError(f"mode must be one of {MODES}: {mode!r}")
         self.cfg, self.bundle = cfg, bundle
         self.device = devices.resolve(device)
         self.slices = list(slices)
@@ -101,12 +106,16 @@ class HeMTTrainer:
         self.corpus = SyntheticCorpus(cfg.vocab_size, seq_len, seed=seed)
         self.source = GrainSource(self.corpus, grain_batch)
         self.planner = GrainPlanner([s.name for s in self.slices],
-                                    alpha=alpha, mode="hemt" if mode == "hemt" else "homt")
+                                    alpha=alpha,
+                                    mode="hemt" if mode in ("hemt", "oa-hemt") else "homt")
         self.grain_accumulate = grain_accumulate_cached(cfg, bundle)
         self.apply_step = make_apply_step(cfg, bundle)
         self.reports: List[StepReport] = []
         self.grain_dispatches = 0   # grain-accumulate calls (1 per step)
         self._clock = 0.0           # virtual fleet clock (seconds)
+        # set by run_window when the whole fleet is lost and recovery gives
+        # up: the FleetExhaustedError's last-known speed estimates
+        self.exhausted: Optional[Dict[str, float]] = None
 
     # ------------------------------------------------------------------
     def _sim_nodes(self) -> List[SimNode]:
@@ -187,6 +196,108 @@ class HeMTTrainer:
                          float(metrics["loss"]), steals)
         self.reports.append(rep)
         return state, rep
+
+    def run_window(self, state: TrainState, n_steps: int, *,
+                   faults=None, monitor=None) -> TrainState:
+        """OA-HeMT at window scale (mode ``oa-hemt``): schedule the next
+        ``n_steps`` gradient barriers in ONE adaptive resident-calendar
+        pass — each barrier re-plans the next step's grain split from the
+        shared AR(1) estimator, with a whole-grain quantum — then execute
+        the real math per step with the logged counts.  Other modes fall
+        back to per-step :meth:`run_step` scheduling.
+
+        The estimator is fed by the adaptive plan itself (executed grains
+        / busy time per slice at every barrier, in grains/sec, the unit
+        ``planner.observe_step`` records), so per-step and windowed
+        scheduling can be mixed freely.  A window stage is one *macrotask*
+        per slice (a single ``grain_overhead`` per barrier), whereas
+        ``run_step``'s static stage pays the overhead per grain.
+
+        ``faults`` (a :class:`~repro_torch.core.faults.FaultTrace` on the
+        fleet clock) injects crashes / spot preemptions into the window's
+        virtual schedule: it is shifted to the window's local clock and the
+        whole window is one :class:`~repro_torch.core.resident.
+        ResidentCalendar` pass, so recoveries splice into the adaptive
+        schedule.  The trace is a *timing* model: every grain's gradient
+        still accumulates.  ``monitor`` (a :class:`~repro_torch.runtime.ft.
+        FleetMonitor`) gets per-slice heartbeats at every barrier (slices
+        the barrier planned work for) and runs ``monitor.check``; after the
+        window every dead declaration is applied at once by
+        :func:`repro_torch.runtime.elastic.replan`, which keeps the
+        survivors' estimates.  If no slice survives, the
+        :class:`~repro_torch.runtime.elastic.FleetExhaustedError` is
+        absorbed: the monitor logs the terminal event, the last-known
+        estimates land in ``self.exhausted``, and the state trained so far
+        is returned.  Both keywords are honored in ``oa-hemt`` mode only
+        (passing them in a per-step mode raises).
+        """
+        if self.mode != "oa-hemt":
+            if faults is not None or monitor is not None:
+                raise ValueError(
+                    "faults/monitor wiring needs windowed scheduling "
+                    "(mode='oa-hemt'); other modes schedule per step")
+            for _ in range(n_steps):
+                state, _ = self.run_step(state)
+            return state
+        if n_steps <= 0:
+            return state
+        nodes = self._sim_nodes()
+        plan0 = self.planner.plan(self.n_grains)
+        spec = StaticSpec(works=tuple(g * self.grain_cost
+                                      for g in plan0.grains))
+        adaptive = AdaptivePlan(estimator=self.planner.estimator,
+                                quantum=self.grain_cost,
+                                min_units=self.planner.min_grains)
+        trace = faults.shift(-self._clock) if faults is not None else None
+        job = ResidentJob(
+            "window", stages=(spec,) * n_steps,
+            retry=trace.retry if trace is not None else RetryPolicy(),
+            adaptive=adaptive,
+            # abandoned work is eaten (the step's gradients all accumulate
+            # anyway), never folded into the next barrier's quantum budget
+            fold_lost=False)
+        result = ResidentCalendar(nodes, faults=trace).run([job])
+        outcome = result.outcomes["window"]
+        clock0 = self._clock
+        dead_all: List[str] = []
+        for s, summ in enumerate(outcome.stages):
+            counts = {nm: int(round(w / self.grain_cost))
+                      for nm, w in outcome.planned[s].items()}
+            elapsed = {nm: summ.node_finish[nm] - summ.start
+                       for nm in counts}
+            step = int(state.step)
+            state, metrics = self._execute_math(state, counts)
+            rep = StepReport(step, self.mode, counts, elapsed, summ.span,
+                             summ.idle_time, float(metrics["loss"]), 0)
+            self.reports.append(rep)
+            self._clock = clock0 + summ.completion
+            if monitor is not None:
+                for nm in counts:
+                    if counts[nm] > 0 and elapsed[nm] > 0.0:
+                        monitor.heartbeat(Heartbeat(
+                            nm, self._clock, counts[nm], elapsed[nm]))
+                newly_dead, _ = monitor.check(self._clock)
+                dead_all.extend(newly_dead)
+        gone = set(dead_all)
+        if outcome.status == "stranded":
+            # the calendar drained with the window unfinished: whatever the
+            # monitor saw, only the calendar's usable nodes survive
+            gone |= {sl.name for sl in self.slices
+                     if sl.name not in set(result.alive)}
+        if gone:
+            # apply the whole window's roster change at once: survivors
+            # keep their AR(1) estimates (paper §5.1)
+            self.slices = [sl for sl in self.slices if sl.name not in gone]
+            try:
+                elastic.replan(self.planner,
+                               [sl.name for sl in self.slices])
+            except elastic.FleetExhaustedError as e:
+                # graceful degradation: log the terminal event, keep the
+                # last-known estimates, hand back the state trained so far
+                if monitor is not None:
+                    monitor.mark_exhausted(self._clock, e.estimates)
+                self.exhausted = e.estimates
+        return state
 
     def run(self, state: TrainState, n_steps: int,
             log: Optional[Callable[[StepReport], None]] = None,

@@ -1,0 +1,332 @@
+"""Checkpoints in the port (``repro_torch.checkpoint``): twins of
+tests/test_checkpoint.py, and round trips across the packages. The on-disk
+format is the reference's, so a checkpoint written by either package
+restores in the other: the same npz keys, the same arrays (bf16 as its
+uint16 bits) and the same ``meta.json`` digest.
+"""
+import dataclasses
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.checkpoint import (
+    CheckpointManager, load_pytree, restore_checkpoint, save_checkpoint, snapshot,
+)
+from repro_torch.configs import ArchBundle, MeshConfig, TrainConfig, get_reduced
+from repro_torch.data.pipeline import SyntheticCorpus
+from repro_torch.runtime.train_loop import make_train_step, train_state_init
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture
+def tree():
+    return {"params": {"w": torch.arange(12.0).reshape(3, 4),
+                       "b": torch.ones((4,), dtype=torch.bfloat16)},
+            "opt": (torch.zeros(()), [torch.full((2,), 3.0)])}
+
+
+def _leaves(t):
+    if isinstance(t, dict):
+        return [x for k in sorted(t) for x in _leaves(t[k])]
+    if isinstance(t, (list, tuple)):
+        return [x for v in t for x in _leaves(v)]
+    return [t]
+
+
+# --- twins of tests/test_checkpoint.py --------------------------------------------
+
+def test_roundtrip(tmp_path, tree):
+    want = [x.clone() for x in _leaves(tree)]
+    path = save_checkpoint(str(tmp_path), 7, tree, {"note": "x"})
+    like = {"params": {"w": torch.zeros(3, 4), "b": torch.zeros(4, dtype=torch.bfloat16)},
+            "opt": (torch.ones(()), [torch.zeros(2)])}
+    step, restored, meta = restore_checkpoint(path, like)
+    assert step == 7 and meta == {"note": "x"}
+    for a, b in zip(want, _leaves(restored)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+        assert a.dtype == b.dtype
+    # the like tree's tensors were written in place
+    assert restored["params"]["w"] is like["params"]["w"]
+
+
+def test_missing_commit_marker_rejected(tmp_path, tree):
+    path = save_checkpoint(str(tmp_path), 1, tree)
+    os.remove(os.path.join(path, "_COMPLETE"))
+    with pytest.raises(FileNotFoundError):
+        restore_checkpoint(path, tree)
+
+
+def test_shape_mismatch_rejected(tmp_path, tree):
+    path = save_checkpoint(str(tmp_path), 1, tree)
+    bad = dict(tree)
+    bad["params"] = {"w": torch.zeros((4, 4)), "b": tree["params"]["b"]}
+    before = tree["params"]["b"].clone()
+    with pytest.raises(ValueError):
+        restore_checkpoint(path, bad)
+    # nothing is written before every leaf has been checked
+    torch.testing.assert_close(tree["params"]["b"], before, rtol=0, atol=0)
+    with pytest.raises(KeyError, match="missing leaf"):
+        load_pytree(path, {"other": torch.zeros(2)})
+
+
+def test_manager_rotation_and_debris(tmp_path, tree):
+    mgr = CheckpointManager(str(tmp_path), keep=2)
+    for s in (1, 2, 3, 4):
+        mgr.save(s, tree)
+    assert mgr.steps() == [3, 4]
+    os.makedirs(os.path.join(str(tmp_path), "step_00000099"))
+    assert mgr.latest() == 4
+    mgr.save(5, tree)
+    assert not os.path.exists(os.path.join(str(tmp_path), "step_00000099"))
+
+
+def test_manager_async_and_resume(tmp_path, tree):
+    mgr = CheckpointManager(str(tmp_path), keep=3)
+    mgr.save_async(10, tree)
+    tree["params"]["w"].add_(100.0)     # training goes on in place meanwhile
+    mgr.wait()
+    like = {"params": {"w": torch.zeros(3, 4), "b": torch.zeros(4, dtype=torch.bfloat16)},
+            "opt": (torch.ones(()), [torch.zeros(2)])}
+    got = mgr.restore_latest(like)
+    assert got is not None and got[0] == 10
+    # the snapshot was taken before save_async returned
+    torch.testing.assert_close(got[1]["params"]["w"], torch.arange(12.0).reshape(3, 4))
+
+
+def test_resume_after_simulated_crash(tmp_path, tree):
+    mgr = CheckpointManager(str(tmp_path), keep=3)
+    mgr.save(1, tree)
+    partial = os.path.join(str(tmp_path), "step_00000002")
+    os.makedirs(partial)
+    open(os.path.join(partial, "arrays.npz"), "wb").close()
+    step, _, _ = mgr.restore_latest(tree)
+    assert step == 1
+
+
+def test_end_to_end_train_resume(tmp_path):
+    """Crash after step 4 and resume from the checkpoint of step 2 into a
+    fresh state: replaying steps 2-3 gives the same params, 0.0 apart."""
+    cfg = dataclasses.replace(get_reduced("granite-3-8b"), n_layers=2)
+    bundle = ArchBundle(model=cfg, train=TrainConfig(lr=1e-3, warmup_steps=1, total_steps=10))
+    corpus = SyntheticCorpus(cfg.vocab_size, 16, seed=0)
+    step_fn = make_train_step(cfg, bundle)
+    mgr = CheckpointManager(str(tmp_path))
+
+    def batch(s):
+        return {k: torch.from_numpy(v) for k, v in corpus.batch(range(s * 4, s * 4 + 4)).items()}
+
+    state = train_state_init(0, cfg, bundle, device="cpu")
+    for s in range(4):
+        state, _ = step_fn(state, batch(s))
+        if s == 1:
+            mgr.save(2, state)
+
+    step, resumed, _ = mgr.restore_latest(train_state_init(1, cfg, bundle, device="cpu"))
+    assert step == 2 and resumed.step == 2 and resumed.opt.step == 2
+    for s in range(2, 4):
+        resumed, _ = step_fn(resumed, batch(s))
+    err = max(float((a.detach().float() - b.detach().float()).abs().max())
+              for a, b in zip(state.params.parameters(), resumed.params.parameters()))
+    assert err == 0.0
+    assert all(torch.equal(state.opt.mu[n], resumed.opt.mu[n]) for n in state.opt.mu)
+
+
+# --- across packages --------------------------------------------------------------
+
+CASES = [("granite-3-8b", "bfloat16", "none", False), ("mamba2-2.7b", "bfloat16", "none", False),
+         ("granite-3-8b", "float32", "int8", True)]
+CASE_IDS = ["granite-bf16", "mamba2-bf16", "granite-fp32-ef-bf16moments"]
+
+
+def _pair(arch, dtype, compression, bf16_moments):
+    """The reference's and the port's (cfg, bundle) for one case."""
+    from repro.configs import ArchBundle as JBundle
+    from repro.configs import MeshConfig as JMesh
+    from repro.configs import TrainConfig as JTrain
+    from repro.configs import get_reduced as j_get_reduced
+
+    tc = dict(lr=1e-3, warmup_steps=1, total_steps=10, compression=compression)
+    jcfg = dataclasses.replace(j_get_reduced(arch), n_layers=2, dtype=dtype)
+    tcfg = dataclasses.replace(get_reduced(arch), n_layers=2, dtype=dtype)
+    return ((jcfg, JBundle(model=jcfg, train=JTrain(**tc), mesh=JMesh(bf16_optimizer=bf16_moments))),
+            (tcfg, ArchBundle(model=tcfg, train=TrainConfig(**tc),
+                              mesh=MeshConfig(bf16_optimizer=bf16_moments))))
+
+
+def _ref_state_after_a_step(jcfg, jb, corpus):
+    import jax
+    import jax.numpy as jnp
+
+    from repro.runtime.train_loop import make_train_step as j_step
+    from repro.runtime.train_loop import train_state_init as j_init
+
+    step = jax.jit(j_step(jcfg, jb))
+    st = j_init(jax.random.PRNGKey(0), jcfg, jb)
+    batch = {k: jnp.asarray(v) for k, v in corpus.batch(range(4)).items()}
+    return step, step(st, batch)[0]
+
+
+def _npz(path):
+    with np.load(os.path.join(path, "arrays.npz")) as z:
+        arrays = {k: z[k] for k in z.files}
+    with open(os.path.join(path, "meta.json")) as f:
+        return arrays, json.load(f)
+
+
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_reference_checkpoint_restores_in_the_port(tmp_path, case):
+    """The reference writes a TrainState after one step; the port restores
+    it into its own state, and the next step's loss and params match the
+    reference's. Written again by the port, it gives the same npz keys,
+    arrays and digest."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.checkpoint import save_checkpoint as j_save
+
+    (jcfg, jb), (tcfg, tb) = _pair(*case)
+    corpus = SyntheticCorpus(tcfg.vocab_size, 16, seed=0)
+    j_step, jst = _ref_state_after_a_step(jcfg, jb, corpus)
+    ref_path = j_save(str(tmp_path / "ref"), 1, jst)
+
+    step, tst, _ = restore_checkpoint(ref_path, train_state_init(5, tcfg, tb, device="cpu"))
+    assert step == 1 and tst.step == 1 and tst.opt.step == 1
+    assert bool(tst.ef) == (case[2] != "none")
+    port_path = save_checkpoint(str(tmp_path / "port"), 1, tst)
+    (ra, rmeta), (pa, pmeta) = _npz(ref_path), _npz(port_path)
+    assert sorted(pa) == sorted(ra)
+    for k in ra:
+        assert pa[k].dtype == ra[k].dtype and pa[k].shape == ra[k].shape, k
+        np.testing.assert_array_equal(pa[k], ra[k], err_msg=k)
+    assert pmeta == rmeta
+
+    batch = corpus.batch(range(4, 8))
+    jst2, jm = j_step(jst, {k: jnp.asarray(v) for k, v in batch.items()})
+    tst2, tm = make_train_step(tcfg, tb)(tst, {k: torch.from_numpy(v) for k, v in batch.items()})
+    rtol = 1e-5 if case[1] == "float32" else 2e-3
+    assert float(tm["loss"]) == pytest.approx(float(jm["loss"]), rel=rtol)
+    if case[1] == "float32":
+        from repro_torch import convert
+        got = convert.to_jax_layout(tst2.params, tcfg)
+        for (path, a), (_, b) in zip(
+                jax.tree_util.tree_flatten_with_path(got)[0],
+                jax.tree_util.tree_flatten_with_path(jax.tree.map(np.asarray, jst2.params))[0]):
+            np.testing.assert_allclose(a, b, atol=1e-5, rtol=0,
+                                       err_msg=jax.tree_util.keystr(path))
+
+
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_port_checkpoint_restores_in_the_reference(tmp_path, case):
+    """The port writes its TrainState after a step;
+    ``repro.checkpoint.restore_checkpoint`` restores it into the
+    reference's TrainState, leaf for leaf."""
+    import jax
+
+    from repro.checkpoint import restore_checkpoint as j_restore
+    from repro.runtime.train_loop import train_state_init as j_init
+    from repro_torch import convert
+
+    (jcfg, jb), (tcfg, tb) = _pair(*case)
+    corpus = SyntheticCorpus(tcfg.vocab_size, 16, seed=0)
+    tst = train_state_init(0, tcfg, tb, device="cpu")
+    tst, _ = make_train_step(tcfg, tb)(
+        tst, {k: torch.from_numpy(v) for k, v in corpus.batch(range(4)).items()})
+    path = save_checkpoint(str(tmp_path), 1, tst, {"by": "port"})
+    step, jst, meta = j_restore(path, j_init(jax.random.PRNGKey(3), jcfg, jb))
+    assert step == 1 and meta == {"by": "port"}
+    assert int(jst.step) == 1 and int(jst.opt.step) == 1
+    flat = snapshot(tst)
+    for tree, prefix in ((jst.params, "params"), (jst.opt.mu, "opt/mu"),
+                         (jst.opt.nu, "opt/nu"), (jst.ef, "ef")):
+        for path_e, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+            key = "/".join([prefix] + [str(p.key) for p in path_e])
+            arr = np.asarray(leaf)
+            if arr.dtype.name == "bfloat16":
+                arr = arr.view(np.uint16)
+            np.testing.assert_array_equal(arr, flat[key], err_msg=key)
+    # and the params convert back to the port's model value for value
+    got = convert.from_jax_params(jax.tree.map(np.asarray, jst.params), tcfg, device="cpu")
+    back = dict(got.named_parameters())
+    assert sorted(back) == sorted(n for n, _ in tst.params.named_parameters())
+    for n, b in tst.params.named_parameters():
+        assert torch.equal(back[n], b.detach()), n
+
+
+def test_identical_states_give_identical_files(tmp_path):
+    """A reference state and the port's state converted from it, both
+    fresh: the same npz keys, arrays and meta.json."""
+    import jax
+
+    from repro.checkpoint import save_checkpoint as j_save
+    from repro.runtime.train_loop import train_state_init as j_init
+    from repro_torch import convert
+    from repro_torch.runtime.train_loop import train_state_from_params
+
+    (jcfg, jb), (tcfg, tb) = _pair("mamba2-2.7b", "bfloat16", "topk", False)
+    jst = j_init(jax.random.PRNGKey(0), jcfg, jb)
+    tst = train_state_from_params(
+        convert.from_jax_params(jax.tree.map(np.asarray, jst.params), tcfg, device="cpu"), tb)
+    (ra, rmeta), (pa, pmeta) = (_npz(j_save(str(tmp_path / "ref"), 0, jst, {"k": 1})),
+                                _npz(save_checkpoint(str(tmp_path / "port"), 0, tst, {"k": 1})))
+    assert sorted(pa) == sorted(ra) and pmeta == rmeta
+    for k in ra:
+        assert pa[k].dtype == ra[k].dtype
+        np.testing.assert_array_equal(pa[k], ra[k], err_msg=k)
+
+
+def test_generic_tree_round_trips_across_packages(tmp_path, tree):
+    import jax.numpy as jnp
+
+    from repro.checkpoint import restore_checkpoint as j_restore
+    from repro.checkpoint import save_checkpoint as j_save
+
+    jtree = {"params": {"w": jnp.arange(12.0).reshape(3, 4), "b": jnp.ones((4,), jnp.bfloat16)},
+             "opt": (jnp.zeros(()), [jnp.full((2,), 3.0)])}
+    (ra, rmeta), (pa, pmeta) = (_npz(j_save(str(tmp_path / "ref"), 3, jtree)),
+                                _npz(save_checkpoint(str(tmp_path / "port"), 3, tree)))
+    assert sorted(pa) == sorted(ra) == ["opt/0", "opt/1/0", "params/b", "params/w"]
+    assert pmeta == rmeta
+    _, back, _ = j_restore(str(tmp_path / "port" / "step_00000003"), jtree)
+    np.testing.assert_array_equal(np.asarray(back["params"]["w"]), tree["params"]["w"].numpy())
+    assert back["params"]["b"].dtype == jnp.bfloat16
+
+
+def test_save_needs_the_models_layer_period(tmp_path):
+    cfg = dataclasses.replace(get_reduced("granite-3-8b"), n_layers=1)
+    st = train_state_init(0, cfg, ArchBundle(model=cfg, train=TrainConfig()), device="cpu")
+    del st.params.layer_period
+    with pytest.raises(ValueError, match="layer_period"):
+        save_checkpoint(str(tmp_path), 0, st)
+
+
+@pytest.mark.gpu
+def test_checkpoint_from_card_restores_on_card_and_cpu(tmp_path):
+    """A training state on the card, saved async while it goes on training
+    in place: restored into a fresh state on the card and one on the CPU,
+    every leaf equal bit for bit to the state at the save."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = dataclasses.replace(get_reduced("mamba2-2.7b"), n_layers=2)
+    bundle = ArchBundle(model=cfg, train=TrainConfig(lr=1e-3, warmup_steps=1, total_steps=10))
+    corpus = SyntheticCorpus(cfg.vocab_size, 16, seed=0)
+    step_fn = make_train_step(cfg, bundle)
+    state = train_state_init(0, cfg, bundle, device="cuda")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in corpus.batch(range(4)).items()}
+    state, _ = step_fn(state, batch)
+    want = {k: v.copy() for k, v in snapshot(state).items()}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save_async(1, state)
+    state, _ = step_fn(state, batch)     # the live state moves on
+    mgr.wait()
+    for dev in ("cuda", "cpu"):
+        step, got, _ = mgr.restore_latest(train_state_init(1, cfg, bundle, device=dev))
+        assert step == 1 and got.step == 1
+        assert next(got.params.parameters()).device.type == dev
+        flat = snapshot(got)
+        assert sorted(flat) == sorted(want)
+        for k in want:
+            np.testing.assert_array_equal(flat[k], want[k], err_msg=k)

@@ -142,9 +142,12 @@ def test_batched_accumulate_matches_per_grain_loop():
 
 def test_trainer_modes_and_entry_points(monkeypatch):
     cfg, bundle = _tiny()
-    with pytest.raises(ValueError, match="oa-hemt"):
+    with pytest.raises(ValueError, match="mode must be one of"):
         HeMTTrainer(cfg, bundle, [SliceSpec("a")], grain_batch=2, global_batch=4,
-                    seq_len=8, mode="oa-hemt", device="cpu")
+                    seq_len=8, mode="oa", device="cpu")
+    tr = HeMTTrainer(cfg, bundle, [SliceSpec("a")], grain_batch=2, global_batch=4,
+                     seq_len=8, mode="oa-hemt", device="cpu")
+    assert tr.planner.mode == "hemt" and tr.exhausted is None
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         HeMTTrainer(cfg, bundle, [SliceSpec("a")], grain_batch=2, global_batch=4, seq_len=8)
@@ -212,6 +215,194 @@ def test_trainer_matches_reference_trainer(arch, mode):
                                  jax.tree_util.tree_flatten_with_path(
                                      jax.tree.map(np.asarray, jst.params))[0]):
         np.testing.assert_allclose(a, b, atol=1e-4, err_msg=jax.tree_util.keystr(path))
+
+
+# --- the windowed mode (oa-hemt): twins of tests/test_oa_hemt.py and test_runtime.py ---
+
+def _window_pair(arch, slices, *, global_batch=16, grain_cost=1.0, dtype="float32"):
+    """The reference's and the port's oa-hemt trainers over the same slices,
+    and their states from the same converted params."""
+    import jax
+
+    from repro.configs import ArchBundle as JBundle
+    from repro.configs import TrainConfig as JTrain
+    from repro.configs import get_reduced as j_get_reduced
+    from repro.runtime import hemt_driver as jhd
+    from repro.runtime import train_loop as jtl
+    from repro_torch.runtime.train_loop import train_state_from_params
+
+    jcfg = dataclasses.replace(j_get_reduced(arch), n_layers=2, dtype=dtype)
+    tcfg = dataclasses.replace(get_reduced(arch), n_layers=2, dtype=dtype)
+    tc = dict(lr=1e-3, warmup_steps=2, total_steps=50)
+    jb, tb = JBundle(model=jcfg, train=JTrain(**tc)), ArchBundle(model=tcfg, train=TrainConfig(**tc))
+    kw = dict(grain_batch=2, global_batch=global_batch, seq_len=16, mode="oa-hemt",
+              grain_cost=grain_cost)
+    jtr = jhd.HeMTTrainer(jcfg, jb, [jhd.SliceSpec(*s) for s in slices], **kw)
+    ttr = HeMTTrainer(tcfg, tb, [SliceSpec(*s) for s in slices], device="cpu", **kw)
+    jst = jtl.train_state_init(jax.random.PRNGKey(0), jcfg, jb)
+    tst = train_state_from_params(
+        convert.from_jax_params(jax.tree.map(np.asarray, jst.params), tcfg, device="cpu"), tb)
+    return (jtr, jst), (ttr, tst, tcfg)
+
+
+def _assert_reports_equal(jtr, ttr, loss_rel):
+    assert len(ttr.reports) == len(jtr.reports)
+    for j, t in zip(jtr.reports, ttr.reports):
+        assert (t.step, t.mode, t.grain_counts, t.slice_elapsed, t.makespan, t.idle_time,
+                t.steals) == (j.step, j.mode, j.grain_counts, j.slice_elapsed, j.makespan,
+                              j.idle_time, j.steals)
+        assert t.loss == pytest.approx(j.loss, rel=loss_rel)
+    assert [s.name for s in ttr.slices] == [s.name for s in jtr.slices]
+    assert ttr.exhausted == jtr.exhausted
+    assert ttr.planner.estimator.known() == jtr.planner.estimator.known()
+    assert [dataclasses.astuple(p) for p in ttr.planner.step_log] == \
+        [dataclasses.astuple(p) for p in jtr.planner.step_log]
+
+
+def _assert_params_close(jst, tst, tcfg, atol):
+    import jax
+
+    got = convert.to_jax_layout(tst.params, tcfg)
+    want = jax.tree.map(np.asarray, jst.params)
+    for (path, a), (_, b) in zip(jax.tree_util.tree_flatten_with_path(got)[0],
+                                 jax.tree_util.tree_flatten_with_path(want)[0]):
+        np.testing.assert_allclose(a, b, atol=atol, rtol=0, err_msg=jax.tree_util.keystr(path))
+
+
+def test_trainer_oa_hemt_window_adapts_and_keeps_math():
+    """mode='oa-hemt': one adaptive resident-calendar pass schedules the
+    whole window (per-barrier grain re-splits, whole-grain quantum) while
+    the math stays a real grain-accumulated update per step."""
+    cfg, bundle = _tiny()
+    slices = [SliceSpec("fast", [(0.0, 1.0)], 0.05), SliceSpec("slow", [(0.0, 0.4)], 0.05)]
+    tr = HeMTTrainer(cfg, bundle, slices, grain_batch=2, global_batch=16, seq_len=16,
+                     mode="oa-hemt", grain_cost=2.0, device="cpu")
+    st = tr.run_window(_state(cfg, bundle), 5)
+    assert int(st.step) == 5 and tr.grain_dispatches == 5 and len(tr.reports) == 5
+    # grains/sec in the shared estimator: fast ran 6 grains in 0.05 + 12.0 s
+    assert tr.planner.estimator.speed("fast") == pytest.approx(6.0 / 12.05, rel=1e-3)
+    st, rep = tr.run_step(st)           # per-step path on the same state
+    assert tr.planner.estimator.speed("fast") == pytest.approx(0.49, rel=0.05)
+    for rep in tr.reports:
+        assert sum(rep.grain_counts.values()) == tr.n_grains
+        assert np.isfinite(rep.loss)
+    assert tr.reports[0].grain_counts == {"fast": 4, "slow": 4}
+    assert tr.reports[-1].grain_counts["fast"] > tr.reports[-1].grain_counts["slow"]
+    assert tr.reports[-1].makespan < tr.reports[0].makespan
+
+
+@pytest.mark.parametrize("arch", ["granite-3-8b", "mamba2-2.7b"])
+def test_trainer_oa_hemt_window_matches_reference(arch):
+    """The same window in both packages (float32): equal grain counts,
+    elapsed times, makespans, idles and estimator speeds; losses and the
+    parameters after the window within 1e-5."""
+    (jtr, jst), (ttr, tst, tcfg) = _window_pair(
+        arch, [("fast", [(0.0, 1.0)], 0.05), ("slow", [(0.0, 0.4)], 0.05)], grain_cost=2.0)
+    jst = jtr.run_window(jst, 5)
+    tst = ttr.run_window(tst, 5)
+    _assert_reports_equal(jtr, ttr, 1e-5)
+    assert ttr.planner.estimator.speed("fast") == jtr.planner.estimator.speed("fast")
+    assert ttr.total_time() == jtr.total_time() and tst.step == int(jst.step) == 5
+    _assert_params_close(jst, tst, tcfg, 1e-5)
+    # a per-step step after the window, on both
+    jst, _ = jtr.run_step(jst)
+    tst, _ = ttr.run_step(tst)
+    _assert_reports_equal(jtr, ttr, 1e-5)
+
+
+def _crash_window(m, tr, st):
+    trace = m.faults.FaultTrace((m.faults.NodeCrash(1, 6.0),))    # permanent, mid-step-1
+    mon = m.ft.FleetMonitor(["fast", "slow"], timeout=4.0)
+    return tr.run_window(st, 6, faults=trace, monitor=mon), mon
+
+
+def test_trainer_window_detects_crash_and_replans_survivors():
+    """A fault trace kills a slice mid-window, its heartbeats stop, the
+    FleetMonitor declares it dead, and elastic.replan drops it — all in one
+    run_window call — in both packages alike."""
+    from types import SimpleNamespace
+
+    from repro.core import faults as j_faults
+    from repro.runtime import ft as j_ft
+    from repro_torch.core import faults as t_faults
+    from repro_torch.runtime import ft as t_ft
+
+    (jtr, jst), (ttr, tst, tcfg) = _window_pair(
+        "granite-3-8b", [("fast", [(0.0, 1.0)], 0.05), ("slow", [(0.0, 1.0)], 0.05)])
+    jst, jmon = _crash_window(SimpleNamespace(faults=j_faults, ft=j_ft), jtr, jst)
+    tst, tmon = _crash_window(SimpleNamespace(faults=t_faults, ft=t_ft), ttr, tst)
+    assert tst.step == 6 and len(ttr.reports) == 6
+    assert [s.name for s in ttr.slices] == ["fast"] and tmon.alive() == ["fast"]
+    assert [e.slice_name for e in tmon.events if e.kind == "dead"] == ["slow"]
+    for rep in ttr.reports:
+        assert sum(rep.grain_counts.values()) == ttr.n_grains
+        assert np.isfinite(rep.loss)
+    assert ttr.reports[-1].grain_counts == {"fast": 8}
+    _assert_reports_equal(jtr, ttr, 1e-5)
+    assert [dataclasses.astuple(e) for e in tmon.events] == \
+        [dataclasses.astuple(e) for e in jmon.events]
+    _assert_params_close(jst, tst, tcfg, 1e-5)
+
+
+def test_trainer_per_step_mode_rejects_fault_wiring():
+    from repro_torch.core.faults import FaultTrace, NodeCrash
+    from repro_torch.runtime.ft import FleetMonitor
+
+    cfg, bundle = _tiny()
+    tr = HeMTTrainer(cfg, bundle, [SliceSpec("a", [(0.0, 1.0)], 0.05)], grain_batch=2,
+                     global_batch=4, seq_len=16, mode="hemt", device="cpu")
+    st = _state(cfg, bundle)
+    with pytest.raises(ValueError, match="windowed scheduling"):
+        tr.run_window(st, 1, faults=FaultTrace((NodeCrash(0, 1.0),)))
+    with pytest.raises(ValueError, match="windowed scheduling"):
+        tr.run_window(st, 1, monitor=FleetMonitor(["a"]))
+    st = tr.run_window(st, 2)           # no wiring: per-step scheduling
+    assert st.step == 2 and len(tr.reports) == 2
+
+
+def test_trainer_window_exhausted_fleet_halts_gracefully():
+    """The whole fleet dies mid-window: the stranded tail is abandoned, the
+    FleetExhaustedError is absorbed into ``exhausted``, and the monitor logs
+    the terminal event — as in the reference."""
+    import jax
+
+    from repro.configs import ArchBundle as JBundle
+    from repro.configs import TrainConfig as JTrain
+    from repro.configs import get_reduced as j_get_reduced
+    from repro.core.faults import FaultTrace as JTrace
+    from repro.core.faults import NodeCrash as JCrash
+    from repro.runtime import hemt_driver as jhd
+    from repro.runtime import train_loop as jtl
+    from repro.runtime.ft import FleetMonitor as JMonitor
+    from repro_torch.core.faults import FaultTrace, NodeCrash
+    from repro_torch.runtime.ft import FleetMonitor
+
+    cfg, bundle = _tiny()
+    kw = dict(grain_batch=2, global_batch=4, seq_len=16, mode="oa-hemt", grain_cost=1.0)
+    tr = HeMTTrainer(cfg, bundle, [SliceSpec("solo", [(0.0, 1.0)], 0.05)], device="cpu", **kw)
+    m = FleetMonitor(["solo"], timeout=4.0)
+    assert tr.exhausted is None
+    # step 0 finishes (~2.05 s); the permanent crash at 3.0 strands the rest
+    st = tr.run_window(_state(cfg, bundle), 3, faults=FaultTrace((NodeCrash(0, 3.0),)),
+                       monitor=m)
+    assert st.step == 1 and len(tr.reports) == 1
+    assert tr.slices == []
+    assert tr.exhausted is not None and "solo" in tr.exhausted
+    assert m.exhausted
+    term = [e for e in m.events if e.kind == "exhausted"]
+    assert len(term) == 1 and term[0].slice_name == "*" and "solo" in term[0].detail
+
+    jcfg = dataclasses.replace(j_get_reduced("granite-3-8b"), n_layers=2)
+    jb = JBundle(model=jcfg, train=JTrain(lr=1e-3, warmup_steps=2, total_steps=50))
+    jtr = jhd.HeMTTrainer(jcfg, jb, [jhd.SliceSpec("solo", [(0.0, 1.0)], 0.05)], **kw)
+    jm = JMonitor(["solo"], timeout=4.0)
+    jtr.run_window(jtl.train_state_init(jax.random.PRNGKey(0), jcfg, jb), 3,
+                   faults=JTrace((JCrash(0, 3.0),)), monitor=jm)
+    assert tr.exhausted == jtr.exhausted
+    assert [dataclasses.astuple(e) for e in m.events] == \
+        [dataclasses.astuple(e) for e in jm.events]
+    assert [(r.grain_counts, r.makespan, r.idle_time) for r in tr.reports] == \
+        [(r.grain_counts, r.makespan, r.idle_time) for r in jtr.reports]
 
 
 # --- the verbatim copies ----------------------------------------------------------------
@@ -283,3 +474,39 @@ def test_trainer_on_card_matches_cpu():
     for c, g in zip(reports["cpu"], reports["cuda"]):
         assert (g.grain_counts, g.makespan) == (c.grain_counts, c.makespan)
         assert g.loss == pytest.approx(c.loss, rel=1e-4)
+
+
+@pytest.mark.gpu
+def test_trainer_window_on_card_matches_cpu():
+    """An oa-hemt window with a crash and a monitor on the card: the same
+    schedule, monitor events and surviving slices as on the CPU, losses
+    within 1e-4 (float32, TF32 off)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core.faults import FaultTrace, NodeCrash
+    from repro_torch.runtime.ft import FleetMonitor
+    from repro_torch.runtime.train_loop import train_state_from_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, bundle = _tiny("float32")
+    slices = [SliceSpec("a", [(0.0, 1.0)], 0.05), SliceSpec("b", [(0.0, 1.0)], 0.05),
+              SliceSpec("c", [(0.0, 0.4)], 0.05)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        tr = HeMTTrainer(cfg, bundle, slices, grain_batch=2, global_batch=24, seq_len=16,
+                         mode="oa-hemt", device=dev)
+        params = convert.from_jax_params(convert.to_jax_layout(
+            train_state_init(0, cfg, bundle, device="cpu").params, cfg), cfg, device=dev)
+        mon = FleetMonitor(["a", "b", "c"], timeout=6.0)
+        st = tr.run_window(train_state_from_params(params, bundle), 4,
+                           faults=FaultTrace((NodeCrash(1, 4.0),)), monitor=mon)
+        assert st.params["embed"]["table"].device.type == dev
+        runs[dev] = (tr, mon)
+    (c, cmon), (g, gmon) = runs["cpu"], runs["cuda"]
+    assert [s.name for s in g.slices] == [s.name for s in c.slices] == ["a", "c"]
+    assert [dataclasses.astuple(e) for e in gmon.events] == \
+        [dataclasses.astuple(e) for e in cmon.events]
+    for cr, gr in zip(c.reports, g.reports):
+        assert (gr.grain_counts, gr.makespan, gr.idle_time) == \
+            (cr.grain_counts, cr.makespan, cr.idle_time)
+        assert gr.loss == pytest.approx(cr.loss, rel=1e-4)
