@@ -18,7 +18,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              (flash_attention on both routes, fp32 on the CUDA cores and
              bf16 on the tensor cores, with bf16 head_dim-128 and -256 cases
              at ragged lengths, GQA groups and a window, and gemma3-12b's
-             attention shape causal and with its 1024-token window; then
+             serving attention shape, causal and with its 1024-token
+             window; then
              ssd_scan on both routes, fp32 x on the CUDA cores and bf16 x on
              the tensor cores, over the sweep and at the serving shape and
              one long prompt's, where the whole ``ops.ssd_scan`` call of
@@ -27,18 +28,27 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              then skewed_bucket, held exactly to the plain version and to
              numpy's ``bucket_of``, also at 4096 capacities and on int64
              hashes, and timed with a cold L2);
-4. serve   — full-width, full-depth granite-3-8b, then mamba2-2.7b, with
-             random weights from a seed, each served for 3 HeMT-dispatched
-             rounds over replicas 1.0,1.0,0.4 through
+4. serve   — full-width, full-depth granite-3-8b, gemma3-12b (48 layers, 5:1
+             local:global, head_dim 256) on 2048-token prompts, so its local
+             layers' 1024-slot rings wrap in prefill and decode,
+             granite-moe-1b-a400m (24 layers, 32 experts, top-8), then
+             mamba2-2.7b, with random weights from a seed, each served for
+             3 HeMT-dispatched rounds over replicas 1.0,1.0,0.4 through
              ``make_prefill_step(impl="pallas")`` and ``make_serve_step``.
              Every kernel's count is set to 0 just before a model's rounds
              and read just after: its own kernel launched once per layer
              and prefill, the other kernel never, all on the wgmma
-             (tensor-core) route. Then pallas against xla prefill logits
-             (mamba2 at 1024 tokens and on one 8192-token prompt: the bf16
-             pallas logits held to twice the bf16 xla path's distance from
-             the xla logits of the weights cast up to fp32, and pallas vs
-             xla on that fp32 copy, which runs the CUDA-core route);
+             (tensor-core) route. Then pallas against xla prefill logits on
+             the same bf16 weights (granite-moe also: the MoE sort dispatch
+             against the dense oracle on layer 0's real FFN input, in fp32
+             and bf16; mamba2 at 1024 tokens and on one 8192-token prompt:
+             the bf16 pallas logits held to twice the bf16 xla path's
+             distance from the xla logits of the weights cast up to fp32,
+             and pallas vs xla on that fp32 copy, which runs the CUDA-core
+             route); between the MoE and mamba2 models, fleet serving:
+             ``repro_torch.launch.serve --simulate``'s ``main()`` in this
+             process for the hemt, even and oracle batching modes, p50/p99,
+             attainment and goodput per mode, no kernel launched;
 5. pagerank — paper Fig 18's PageRank on a 4,847,571-vertex graph with 14
              out-edges per vertex (soc-LiveJournal1's vertex count), 100
              iterations in each of the four modes of the demo, then a
@@ -115,6 +125,24 @@ PROMPT_LEN = 1024
 GEN_LEN = 16
 MAX_LEN = PROMPT_LEN + GEN_LEN
 LONG_PROMPT_LEN = 8192        # one long prompt: mamba2's xla side scans chunks there
+# gemma3-12b serves prompts of twice its 1024-token window, so the 40 local
+# layers' 1024-slot rings wrap in prefill and again in decode, and the
+# window mask cuts every row past the first 1024
+GEMMA_ARCH = "gemma3-12b"
+GEMMA_PROMPT_LEN = 2048
+MOE_ARCH = "granite-moe-1b-a400m"
+# the MoE sort dispatch against moe_apply_dense_fallback on layer 0's real
+# FFN input for MOE_CHECK_BATCH prompts, capacity factor n_experts so no
+# pair is dropped: in fp32 the two differ in summation order only; in bf16
+# the dispatch rounds each of a token's 8 weighted expert rows and their
+# sum to bf16 (as the reference), the oracle sums them in fp32
+MOE_CHECK_BATCH = 2
+MOE_FP32_REL_TOL = 1e-5
+MOE_BF16_REL_TOL = 2e-2
+# fleet serving: launch/serve.py's docstring example, every batching mode
+FLEET_ARGV = ("--simulate", "--replicas", "2.0,1.5,1.0,0.5", "--trace", "poisson",
+              "--rate", "2.5", "--horizon", "120", "--window", "2", "--slo", "4")
+FLEET_MODES = ("hemt", "even", "oracle")
 BASE_TOKEN_RATE = 100.0       # virtual decode tokens/s of a speed-1.0 replica
 
 # the reference sweep (tests/test_kernels.py) and the serving shape
@@ -132,9 +160,9 @@ WGMMA_MASKS = ((True, 0), (True, 100), (False, 0))
 WGMMA_256_LENGTHS = (1, 63, 65, 129, 1000)
 WGMMA_256_HEADS = ((4, 4), (4, 1))
 # gemma3-12b's attention (src/repro/configs/gemma3_12b.py: 16 query heads,
-# 8 kv heads, head_dim 256; local layers slide a 1024-token window) at a
-# 2048-token prompt, batch 2, in model layout
-GEMMA_SHAPE = (2, 16, 8, 2048, 256)
+# 8 kv heads, head_dim 256; local layers slide a 1024-token window) at its
+# serving shape: the largest replica batch of 2048-token prompts, model layout
+GEMMA_SHAPE = (10, 16, 8, 2048, 256)
 GEMMA_MASKS = (("causal", True, 0), ("window 1024", True, 1024))
 HEAD_DIMS = (16, 32, 64, 128, 256)
 SMEM_LIMIT = 232_448               # dynamic shared memory a block may use
@@ -740,7 +768,7 @@ def prefill_gap(torch, prefill, params, prompts, cfg, max_len):
 def compare_granite(torch, cfg, params, prompts, dev):
     from repro_torch.models.model import prefill
 
-    gap = prefill_gap(torch, prefill, params, prompts, cfg, MAX_LEN)
+    gap = prefill_gap(torch, prefill, params, prompts, cfg, prompts.shape[1] + GEN_LEN)
     if gap["rel_l2"] > PREFILL_REL_TOL:
         raise AssertionError(f"pallas vs xla prefill logits: rel L2 {gap['rel_l2']} > "
                              f"{PREFILL_REL_TOL}")
@@ -806,15 +834,66 @@ def compare_mamba(torch, cfg, params, prompts, dev):
     return out
 
 
-def phase_serve(torch, counters, cfg, dev, kernel, compare, route=None):
-    """Serve ``cfg`` for ROUNDS rounds; ``kernel`` must launch once per
-    layer and prefill call, all on ``route`` where given, the other
-    counters not at all."""
+def moe_dispatch_check(torch, cfg, params, prompts):
+    """The sort dispatch against the dense oracle on layer 0's real FFN
+    input, with room for every (token, choice) pair; and the share of
+    pairs the served capacity factor drops on the same input."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe
+    from repro_torch.models.layers import embed, rmsnorm
+
+    p = params["stack"][0]
+    b, s = prompts.shape
+    no_drop = dataclasses.replace(cfg.moe, capacity_factor=float(cfg.moe.n_experts))
+    with torch.no_grad():
+        x = embed(params["embed"], prompts)
+        pos = torch.arange(s, device=x.device)[None].expand(b, s)
+        x = x + attn.attention_apply(p["mixer"], rmsnorm(p["norm1"], x, cfg.norm_eps),
+                                     cfg.attention, pos, impl="xla")
+        h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+        out = {"batch": b, "prompt_len": s, "layer": 0}
+        ffn32 = {k: v.float() for k, v in p["ffn"].items()}
+        for name, ffn, hin, tol in (("fp32", ffn32, h.float(), MOE_FP32_REL_TOL),
+                                    ("bf16", p["ffn"], h, MOE_BF16_REL_TOL)):
+            got, aux = moe.moe_apply(ffn, hin, no_drop, cfg.act)
+            want, aux_w = moe.moe_apply_dense_fallback(ffn, hin, no_drop, cfg.act)
+            got, want = got.float(), want.float()
+            if not (bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all())):
+                raise AssertionError(f"moe dispatch {name}: non-finite output")
+            rel = float((got - want).norm() / want.norm())
+            out[name] = {"rel_l2": rel, "max_abs": float((got - want).abs().max()),
+                         "rel_tol": tol, "aux": float(aux), "aux_dense": float(aux_w)}
+            if rel > tol or abs(float(aux) - float(aux_w)) > 1e-6 * abs(float(aux_w)):
+                raise AssertionError(f"moe sort dispatch vs dense oracle ({name}): "
+                                     f"rel L2 {rel} > {tol} or aux {float(aux)} != "
+                                     f"{float(aux_w)}")
+            del got, want
+        caps = moe.expert_capacities(cfg.moe, s)
+        _, top_i, _ = moe.route(p["ffn"], h, cfg.moe)
+        _, keep, _, _ = moe.dispatch_slots(top_i, torch.as_tensor(caps, device=h.device).long(),
+                                           int(caps.max()))
+    out["served_capacity_factor"] = cfg.moe.capacity_factor
+    out["served_drop_share"] = float((~keep).float().mean())
+    return out
+
+
+def compare_moe(torch, cfg, params, prompts, dev):
+    out = compare_granite(torch, cfg, params, prompts, dev)
+    out["moe_dispatch"] = moe_dispatch_check(torch, cfg, params, prompts[:MOE_CHECK_BATCH])
+    return out
+
+
+def phase_serve(torch, counters, cfg, dev, kernel, compare, route=None,
+                prompt_len=PROMPT_LEN):
+    """Serve ``cfg`` for ROUNDS rounds of ``prompt_len``-token prompts;
+    ``kernel`` must launch once per layer and prefill call, all on
+    ``route`` where given, the other counters not at all."""
     from repro_torch.configs import padded_vocab_size
     from repro_torch.models.model import init_params
     from repro_torch.runtime.serve_loop import (HeMTBatcher, make_prefill_step,
                                                 make_serve_step)
 
+    max_len = prompt_len + GEN_LEN
     t0 = time.perf_counter()
     params = init_params(cfg, SEED, device=dev)
     torch.cuda.synchronize()
@@ -823,9 +902,12 @@ def phase_serve(torch, counters, cfg, dev, kernel, compare, route=None):
           "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
           "padded_vocab": padded_vocab_size(cfg), "params": n_params,
           "ssm": None if cfg.ssm is None else dataclasses.asdict(cfg.ssm),
+          "moe": None if cfg.moe is None else dataclasses.asdict(cfg.moe),
+          "attention": None if cfg.attention is None else dataclasses.asdict(cfg.attention),
+          "prompt_len": prompt_len, "max_len": max_len,
           "dtype": cfg.dtype, "init_s": time.perf_counter() - t0, "depth_cut": None})
 
-    prefill_step = make_prefill_step(cfg, MAX_LEN, impl="pallas")
+    prefill_step = make_prefill_step(cfg, max_len, impl="pallas")
     serve_step = make_serve_step(cfg)
     names = [f"rep{i}" for i in range(len(REPLICAS))]
     batcher = HeMTBatcher(names, mode="hemt", min_share=1)
@@ -847,7 +929,7 @@ def phase_serve(torch, counters, cfg, dev, kernel, compare, route=None):
             if b == 0:
                 finish[name] = 0.0
                 continue
-            prompts = torch.randint(0, cfg.vocab_size, (b, PROMPT_LEN),
+            prompts = torch.randint(0, cfg.vocab_size, (b, prompt_len),
                                     generator=gen, device=dev)
             before = counters[kernel].launches
             torch.cuda.synchronize()
@@ -877,8 +959,8 @@ def phase_serve(torch, counters, cfg, dev, kernel, compare, route=None):
             if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
                 raise AssertionError(f"round {rnd} {name}: token out of "
                                      f"[0, {cfg.vocab_size})")
-            if state["length"] != MAX_LEN:
-                raise AssertionError(f"decode length {state['length']} != {MAX_LEN}")
+            if state["length"] != max_len:
+                raise AssertionError(f"decode length {state['length']} != {max_len}")
             n_tok = b * GEN_LEN
             finish[name] = n_tok / (speed * BASE_TOKEN_RATE)
             batcher.observe(name, n_tok, finish[name])
@@ -1521,21 +1603,47 @@ def leaves_equal(torch, a, b) -> list:
     return bad
 
 
-def run_cli(argv) -> list:
-    """``python -m repro_torch.launch.train`` with ``argv``, run in this
+def run_cli(module: str, argv) -> list:
+    """``python -m repro_torch.launch.<module>`` with ``argv``, run in this
     process (its flags, printed lines and resume are what is checked, not a
     process start): the lines it printed."""
     import contextlib
+    import importlib
     import io
     from unittest import mock
 
-    from repro_torch.launch import train as train_cli
-
+    cli = importlib.import_module(f"repro_torch.launch.{module}")
     out = io.StringIO()
-    with mock.patch.object(sys, "argv", ["repro_torch.launch.train", *argv]), \
+    with mock.patch.object(sys, "argv", [f"repro_torch.launch.{module}", *argv]), \
             contextlib.redirect_stdout(out):
-        train_cli.main()
+        cli.main()
     return out.getvalue().splitlines()
+
+
+def phase_fleet(counters):
+    """``repro_torch.launch.serve --simulate`` in this process for every
+    batching mode on its docstring example: host arithmetic on the copied
+    resident calendar, no kernel. HeMT must beat even batching on p99 and
+    SLO attainment, and the clairvoyant oracle be no worse than HeMT on
+    p99 (the reference's bench ordering, tests/test_serving.py)."""
+    zero_counts(counters)
+    t = time.perf_counter()
+    reports = {}
+    for mode in FLEET_MODES:
+        reports[mode] = json.loads("\n".join(run_cli("serve", [*FLEET_ARGV, "--mode", mode])))
+    launches = no_launches(counters, "fleet")
+    for mode, rep in reports.items():
+        if rep["n_completed"] != rep["n_requests"] or rep["n_requests"] == 0:
+            raise AssertionError(f"fleet {mode}: {rep}")
+        emit({"phase": "fleet_mode", "mode": mode,
+              **{k: rep[k] for k in ("n_requests", "n_completed", "p50_s", "p99_s",
+                                     "attainment", "goodput_rps")}})
+    hemt, even, oracle = (reports[m] for m in FLEET_MODES)
+    if not (hemt["p99_s"] < even["p99_s"] and hemt["attainment"] >= even["attainment"]
+            and oracle["p99_s"] <= hemt["p99_s"] + 1e-6):
+        raise AssertionError(f"fleet ordering: {reports}")
+    emit({"phase": "fleet_check", "argv": list(FLEET_ARGV), "modes": list(FLEET_MODES),
+          "launches": launches, "host_s": time.perf_counter() - t})
 
 
 def phase_checkpoint(torch, np, counters):
@@ -1620,7 +1728,7 @@ def phase_checkpoint(torch, np, counters):
         runs = []
         for steps in CLI_STEPS:
             t = time.perf_counter()
-            lines = run_cli(["--arch", TRAIN_ARCH, "--steps", str(steps), "--ckpt-every",
+            lines = run_cli("train", ["--arch", TRAIN_ARCH, "--steps", str(steps), "--ckpt-every",
                              str(CLI_CKPT_EVERY), "--device", "cuda", "--ckpt", cli_dir])
             logged = [json.loads(ln) for ln in lines if ln.startswith("{")]
             runs.append({"steps": steps, "s": time.perf_counter() - t,
@@ -1734,6 +1842,15 @@ def main() -> int:
         torch, counters, get_config(ARCH), dev, "flash_attention", compare_granite,
         route="wgmma")
     torch.cuda.empty_cache()
+    rows["flash_attention"]["launches"] += phase_serve(
+        torch, counters, get_config(GEMMA_ARCH), dev, "flash_attention", compare_granite,
+        route="wgmma", prompt_len=GEMMA_PROMPT_LEN)
+    torch.cuda.empty_cache()
+    rows["flash_attention"]["launches"] += phase_serve(
+        torch, counters, get_config(MOE_ARCH), dev, "flash_attention", compare_moe,
+        route="wgmma")
+    torch.cuda.empty_cache()
+    phase_fleet(counters)
     rows["ssd_scan"]["launches"] = phase_serve(
         torch, counters, get_config(SSM_ARCH), dev, "ssd_scan", compare_mamba,
         route="wgmma")

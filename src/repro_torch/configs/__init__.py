@@ -18,6 +18,8 @@ __all__ = [
 
 # arch id -> module name
 _ARCH_MODULES: Dict[str, str] = {
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "gemma3-12b": "gemma3_12b",
     "granite-3-8b": "granite_3_8b",
     "mamba2-2.7b": "mamba2_2_7b",
 }

@@ -1,8 +1,8 @@
 """Top-level model: embeddings + decoder stack + tied head, train loss,
 prefill, decode.
 
-Port of ``repro/models/model.py`` for decoder-only attention archs and
-pure SSM (Mamba2) archs. The parameters are an ``nn.ModuleDict`` with the
+Port of ``repro/models/model.py`` for decoder-only attention archs (dense,
+MoE, and gemma3's local:global windows) and pure SSM (Mamba2) archs. The parameters are an ``nn.ModuleDict`` with the
 reference's top-level keys (``embed``, ``stack``, ``final_norm``,
 optionally ``unembed``); the decode state holds one cache per layer, a KV
 ring buffer or an SSM ``{"conv", "state"}`` pair. ``init_params`` builds
@@ -151,7 +151,7 @@ def _masked_mean(nll: torch.Tensor, batch: Dict[str, torch.Tensor]) -> torch.Ten
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
             impl: str = "xla", remat: str = "none") -> torch.Tensor:
-    """Next-token cross-entropy (+ MoE aux, zero until MoE is ported).
+    """Next-token cross-entropy (+ MoE aux).
     batch keys: tokens, labels, optionally loss_mask.
 
     Padded vocabularies of at least ``CHUNKED_XENT_VOCAB`` take the chunked

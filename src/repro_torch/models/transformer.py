@@ -1,17 +1,19 @@
 """Decoder stack: a loop over per-layer modules.
 
 Port of ``repro/models/transformer.py`` for attention stacks and pure SSM
-(Mamba2) stacks; each layer dispatches on ``cfg.layer_kind(i)``. The
-reference stacks each leaf along a leading ``(n_groups,)`` axis and scans
-over layer groups; here the stack is an ``nn.ModuleList`` with one entry
-per layer (layer ``i`` plays the reference's ``sub{i % period}`` of group
-``i // period``; ``repro_torch.convert`` moves the leaves), and the scan
-is a Python loop. Hybrid attention/SSM stacks, MoE, cross-attention
-layers and local:global window patterns are not ported yet.
+(Mamba2) stacks; each layer dispatches on ``cfg.layer_kind(i)``, takes an
+MoE FFN where ``cfg.layer_is_moe(i)``, and, under a local:global window
+pattern (gemma3's 5:1), attends globally where ``cfg.layer_is_global_attn(i)``
+and through the sliding window elsewhere. The reference stacks each leaf
+along a leading ``(n_groups,)`` axis and scans over layer groups; here the
+stack is an ``nn.ModuleList`` with one entry per layer (layer ``i`` plays
+the reference's ``sub{i % period}`` of group ``i // period``;
+``repro_torch.convert`` moves the leaves), and the scan is a Python loop.
+Hybrid attention/SSM stacks and cross-attention layers are not ported yet.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -19,6 +21,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import Params, mlp_apply, mlp_init, rmsnorm, rmsnorm_init
 
@@ -30,20 +33,40 @@ def check_ported(cfg: ModelConfig) -> None:
     if cfg.attn_period or (cfg.attention is None) == (cfg.ssm is None):
         raise NotImplementedError(
             f"{cfg.name}: hybrid attention/SSM stacks are not ported yet")
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE layers are not ported yet")
     if cfg.encoder_layers > 0 or cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: encoders, cross-attention and frontends are not ported yet")
-    if cfg.attention is not None and cfg.attention.local_global != (0, 0):
+    if cfg.n_layers % cfg.layer_period:
+        # the reference stacks whole layer groups only (its stack_init asserts it)
         raise NotImplementedError(
-            f"{cfg.name}: local:global window patterns are not ported yet")
+            f"{cfg.name}: {cfg.n_layers} layers are not whole groups of "
+            f"{cfg.layer_period}; partial layer groups are not ported yet")
 
 
-def _cache_len(cfg: ModelConfig, max_len: int) -> int:
-    """A sliding-window layer's ring cache holds only the window."""
-    window = cfg.attention.sliding_window
+def _window(cfg: ModelConfig, idx: int) -> Optional[int]:
+    """The window override of attention layer ``idx``: under a local:global
+    pattern global layers see everything (0) and local ones the sliding
+    window; otherwise None (the config's own ``sliding_window``)."""
+    if cfg.attention.local_global == (0, 0):
+        return None
+    return 0 if cfg.layer_is_global_attn(idx) else cfg.attention.sliding_window
+
+
+def _cache_len(cfg: ModelConfig, idx: int, max_len: int) -> int:
+    """Slots of attention layer ``idx``'s ring cache: a windowed layer holds
+    only its window."""
+    window = _window(cfg, idx)
+    if window is None:
+        window = cfg.attention.sliding_window
     return min(max_len, window) if window > 0 else max_len
+
+
+def _ffn_apply(p: Params, h: torch.Tensor, cfg: ModelConfig, idx: int,
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The FFN of layer ``idx``: (out, moe aux loss or None)."""
+    if cfg.layer_is_moe(idx):
+        return moe_mod.moe_apply(p["ffn"], h, cfg.moe, cfg.act)
+    return mlp_apply(p["ffn"], h, cfg.act), None
 
 
 # ==========================================================================
@@ -63,24 +86,31 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig, idx: int, *,
                        "mixer": mixer})
     if cfg.d_ff > 0 and not (kind == "ssm" and cfg.family == "ssm"):
         p["norm2"] = rmsnorm_init(cfg.d_model, device=device)
-        p["ffn"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.glu, dtype=dtype,
-                            device=device)
+        if cfg.layer_is_moe(idx):
+            p["ffn"] = moe_mod.moe_init(gen, cfg.d_model, cfg.d_ff, cfg.moe, cfg.glu,
+                                        dtype=dtype, device=device)
+        else:
+            p["ffn"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.glu, dtype=dtype,
+                                device=device)
     return p
 
 
 def _layer_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, idx: int,
-                 positions: torch.Tensor, *, impl: str = "xla") -> torch.Tensor:
-    """Pre-norm residual layer."""
+                 positions: torch.Tensor, *, impl: str = "xla",
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Pre-norm residual layer. Returns (x, moe aux loss or None)."""
+    aux = None
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if cfg.layer_kind(idx) == "attn":
-        h = attn.attention_apply(p["mixer"], h, cfg.attention, positions, impl=impl)
+        h = attn.attention_apply(p["mixer"], h, cfg.attention, positions,
+                                 window_override=_window(cfg, idx), impl=impl)
     else:
         h = ssm_mod.ssm_apply(p["mixer"], h, cfg.d_model, cfg.ssm, impl=impl)
     x = x + h
     if "ffn" in p:
-        h = rmsnorm(p["norm2"], x, cfg.norm_eps)
-        x = x + mlp_apply(p["ffn"], h, cfg.act)
-    return x
+        h, aux = _ffn_apply(p, rmsnorm(p["norm2"], x, cfg.norm_eps), cfg, idx)
+        x = x + h
+    return x, aux
 
 
 # ==========================================================================
@@ -99,7 +129,7 @@ REMATS = ("none", "dots", "full")
 def stack_apply(params: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, *, impl: str = "xla",
                 remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x, moe aux loss); the aux loss is zero until MoE is ported.
+    """Returns (x, moe aux loss summed over the MoE layers).
 
     ``remat`` "full" or "dots" runs each layer under
     ``torch.utils.checkpoint`` when gradients are being recorded: the
@@ -110,13 +140,16 @@ def stack_apply(params: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
     if remat not in REMATS:
         raise ValueError(f"remat must be one of {REMATS}: {remat!r}")
     recompute = remat != "none" and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(params):
         if recompute:
-            x = checkpoint(_layer_apply, p, x, cfg, i, positions, impl=impl,
-                           use_reentrant=False)
+            x, aux_i = checkpoint(_layer_apply, p, x, cfg, i, positions, impl=impl,
+                                  use_reentrant=False)
         else:
-            x = _layer_apply(p, x, cfg, i, positions, impl=impl)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, aux_i = _layer_apply(p, x, cfg, i, positions, impl=impl)
+        if aux_i is not None:
+            aux = aux + aux_i
+    return x, aux
 
 
 # ==========================================================================
@@ -128,7 +161,7 @@ def stack_init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     """One cache per layer: a {"k","v"} ring buffer for attention layers
     (sliding-window layers allocate only ``window`` slots), a
     {"conv","state"} pair for SSM layers."""
-    return [attn.init_kv_cache(batch, _cache_len(cfg, max_len), cfg.attention,
+    return [attn.init_kv_cache(batch, _cache_len(cfg, i, max_len), cfg.attention,
                                dtype=dtype, device=device)
             if cfg.layer_kind(i) == "attn" else
             ssm_mod.init_ssm_cache(batch, cfg.d_model, cfg.ssm, dtype=dtype, device=device)
@@ -145,20 +178,24 @@ def stack_prefill(params: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
     stack_decode_step continues seamlessly with cache_len = S.
     """
     cache: Cache = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(params):
         hin = rmsnorm(p["norm1"], x, cfg.norm_eps)
         if cfg.layer_kind(i) == "attn":
             out, c = attn.attention_prefill(p["mixer"], hin, cfg.attention, positions,
-                                            _cache_len(cfg, max_len), impl=impl)
+                                            _cache_len(cfg, i, max_len),
+                                            window_override=_window(cfg, i), impl=impl)
         else:
             out, c = ssm_mod.ssm_prefill(p["mixer"], hin, cfg.d_model, cfg.ssm,
                                          impl=impl)
         x = x + out
         if "ffn" in p:
-            hin = rmsnorm(p["norm2"], x, cfg.norm_eps)
-            x = x + mlp_apply(p["ffn"], hin, cfg.act)
+            out, aux_i = _ffn_apply(p, rmsnorm(p["norm2"], x, cfg.norm_eps), cfg, i)
+            x = x + out
+            if aux_i is not None:
+                aux = aux + aux_i
         cache.append(c)
-    return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, cache, aux
 
 
 def stack_decode_step(params: nn.ModuleList, cache: Cache, x: torch.Tensor,
@@ -170,11 +207,11 @@ def stack_decode_step(params: nn.ModuleList, cache: Cache, x: torch.Tensor,
         hin = rmsnorm(p["norm1"], x, cfg.norm_eps)
         if cfg.layer_kind(i) == "attn":
             out, _ = attn.attention_decode_step(p["mixer"], hin, c, cache_len,
-                                                cfg.attention)
+                                                cfg.attention,
+                                                window_override=_window(cfg, i))
         else:
             out, _ = ssm_mod.ssm_decode_step(p["mixer"], hin, c, cfg.d_model, cfg.ssm)
         x = x + out
         if "ffn" in p:
-            hin = rmsnorm(p["norm2"], x, cfg.norm_eps)
-            x = x + mlp_apply(p["ffn"], hin, cfg.act)
+            x = x + _ffn_apply(p, rmsnorm(p["norm2"], x, cfg.norm_eps), cfg, i)[0]
     return x, cache

@@ -3,8 +3,8 @@
 Port of ``repro/runtime/serve_loop.py``. ``HeMTBatcher`` is the paper's
 §5.1 estimator applied to replicas: request batches are sized proportional
 to AR(1)-estimated per-replica decode throughput, so heterogeneous replicas
-reach their batch deadlines together. ``plan()``, which hands the
-estimator to the fleet-serving scenario, is not ported yet.
+reach their batch deadlines together; ``plan()`` hands the same
+estimator to the fleet-serving scenario (``runtime/serving.py``).
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ from typing import Callable, Dict, List, Sequence
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.engine import AdaptivePlan
 from repro_torch.core.estimators import ARSpeedEstimator
 from repro_torch.core.partitioner import even_split, proportional_split
 from repro_torch.models.model import decode_step, prefill
@@ -98,6 +99,15 @@ class HeMTBatcher:
         for g in gone:
             self.estimator.forget(g)
         self.replicas = list(replicas)
+
+    def plan(self, **kwargs) -> AdaptivePlan:
+        """An :class:`~repro_torch.core.engine.AdaptivePlan` sharing this
+        batcher's AR(1) state.  The fleet serving scenario
+        (:mod:`repro_torch.runtime.serving`) attaches one per batch job, so
+        every decode split is sized from the same estimates round-based
+        ``dispatch`` uses and every finished batch feeds the estimator
+        back through the resident calendar's barrier observations."""
+        return AdaptivePlan(self.estimator, **kwargs)
 
     def straggling(self, factor: float = 2.0) -> List[str]:
         """Replicas whose estimated speed has fallen ``factor``x below
