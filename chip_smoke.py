@@ -16,10 +16,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              the reference's sweep shapes and at the path's shape, timed
              with CUDA events beside the plain version and the library call
              (flash_attention on both routes, fp32 on the CUDA cores and
-             bf16 on the tensor cores, with bf16 head_dim-128 and -256 cases
-             at ragged lengths, GQA groups and a window, and gemma3-12b's
-             serving attention shape, causal and with its 1024-token
-             window; then
+             bf16 on the tensor cores, with bf16 head_dim-64, -128 and -256
+             cases at ragged lengths (1500 among them), GQA groups (7 and
+             16 among them) and a window, gemma3-12b's serving attention
+             shape, causal and with its 1024-token window, and the new
+             paths' serving shapes: whisper-medium's non-causal encoder at
+             1500 frames and its decoder, pixtral-12b, chatglm3-6b (group
+             16) and deepseek-coder-33b (group 7), each beside SDPA; then
              ssd_scan on both routes, fp32 x on the CUDA cores and bf16 x on
              the tensor cores, over the sweep and at the serving shape and
              one long prompt's, where the whole ``ops.ssd_scan`` call of
@@ -31,14 +34,22 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 4. serve   — full-width, full-depth granite-3-8b, gemma3-12b (48 layers, 5:1
              local:global, head_dim 256) on 2048-token prompts, so its local
              layers' 1024-slot rings wrap in prefill and decode,
-             granite-moe-1b-a400m (24 layers, 32 experts, top-8), then
-             mamba2-2.7b, with random weights from a seed, each served for
-             3 HeMT-dispatched rounds over replicas 1.0,1.0,0.4 through
-             ``make_prefill_step(impl="pallas")`` and ``make_serve_step``.
+             granite-moe-1b-a400m (24 layers, 32 experts, top-8),
+             whisper-medium (24 encoder and 24 decoder layers; 256-token
+             prompts over 1500 stub audio frames: ``prefill_step(params,
+             tokens, enc_feats)``, one ``encode`` per batch, then
+             ``serve_step(..., enc_out)``), pixtral-12b (prompts of 1024
+             stub patch embeddings through ``model.prefill``), chatglm3-6b,
+             then mamba2-2.7b, with random weights from a seed, each served
+             for 3 HeMT-dispatched rounds over replicas 1.0,1.0,0.4 through
+             ``make_prefill_step(impl="pallas")`` and ``make_serve_step``;
+             deepseek-coder-33b (62 layers, 66.7 GB of weights) serves one
+             prefill of 2 x 1024 tokens and 16 decode steps and no round,
+             which would not fit beside its weights.
              Every kernel's count is set to 0 just before a model's rounds
              and read just after: its own kernel launched once per layer
-             and prefill, the other kernel never, all on the wgmma
-             (tensor-core) route. Then pallas against xla prefill logits on
+             and prefill (whisper: 24 + 24 + 24 per batch), the other
+             kernel never, all on the wgmma (tensor-core) route. Then pallas against xla prefill logits on
              the same bf16 weights (granite-moe also: the MoE sort dispatch
              against the dense oracle on layer 0's real FFN input, in fp32
              and bf16; mamba2 at 1024 tokens and on one 8192-token prompt:
@@ -48,7 +59,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              route); between the MoE and mamba2 models, fleet serving:
              ``repro_torch.launch.serve --simulate``'s ``main()`` in this
              process for the hemt, even and oracle batching modes, p50/p99,
-             attainment and goodput per mode, no kernel launched;
+             attainment and goodput per mode, no kernel launched; then the
+             scheduler core: ``pull_scan_torch`` in float64 on the card at
+             1000 x 8 x 256 against the numpy ``pull_scan`` (1e-9, equal
+             counts) with a finite makespan gradient, and Fig 7's adaptive
+             sequence through the copied ``AdaptiveHeMTScheduler``, whose
+             history must hash as the CPU's, no kernel launched;
 5. pagerank — paper Fig 18's PageRank on a 4,847,571-vertex graph with 14
              out-edges per vertex (soc-LiveJournal1's vertex count), 100
              iterations in each of the four modes of the demo, then a
@@ -144,6 +160,31 @@ FLEET_ARGV = ("--simulate", "--replicas", "2.0,1.5,1.0,0.5", "--trace", "poisson
               "--rate", "2.5", "--horizon", "120", "--window", "2", "--slo", "4")
 FLEET_MODES = ("hemt", "even", "oracle")
 BASE_TOKEN_RATE = 100.0       # virtual decode tokens/s of a speed-1.0 replica
+# whisper-medium: 256-token decoder prompts (its max_seq_len is 448) over
+# max_source_positions (1500) stub audio frames of 128 features; the
+# encoder runs non-causal through the flash kernel at Sk 1500 = 11 x 128 + 92
+WHISPER_ARCH = "whisper-medium"
+WHISPER_PROMPT_LEN = 256
+# pixtral-12b: prompts of 1024 stub patch embeddings (1024 features) through
+# the vision adapter; decode runs on tokens
+PIXTRAL_ARCH = "pixtral-12b"
+CHATGLM_ARCH = "chatglm3-6b"        # GQA group 16, half rope
+# deepseek-coder-33b: 66.7 GB of bf16 weights leave no room for a HeMT
+# round's replica batches, so one prefill of 2 x 1024 tokens and GEN_LEN
+# decode steps
+DEEPSEEK_ARCH = "deepseek-coder-33b"
+DEEPSEEK_BATCH = 2
+# the scheduler core: pull_scan_torch at benchmarks/bench_batched.py's sizes
+# (rows, nodes, tasks) in float64 against the numpy scan, as
+# tests/test_batched.py holds the JAX twin
+SCAN_SHAPE = (1000, 8, 256)
+SCAN_TOL = 1e-9
+# paper Fig 7 through the copied AdaptiveHeMTScheduler: node b slows from
+# 1.0 to 0.3 at job 10 of 20 (tests/test_simulator_scheduler.py); the
+# sha256 of its history's JSON as the CPU gives it
+FIG7_JOBS = 20
+FIG7_WORK = 130.0
+FIG7_SHA256 = "1356d26421d4f206be8b0d13b2272dafcabe2b63a5d4a57845b03dd99d11b386"
 
 # the reference sweep (tests/test_kernels.py) and the serving shape
 SWEEP_SHAPES = [(1, 2, 2, 64, 64, 16), (2, 4, 2, 96, 96, 32),
@@ -154,7 +195,11 @@ SERVE_SHAPE = (10, 32, 8, 1024, 128)    # B, Hq, Hkv, S, D: the largest share
 # bf16 at the serving head_dim, model layout: ragged lengths around the
 # 128-row tiles, GQA groups 1, 4 and 8 (Hq 8), causal, causal + window, full
 WGMMA_LENGTHS = (1, 127, 129, 1000)
-WGMMA_HEADS = ((8, 8), (8, 2), (8, 1))
+WGMMA_HEADS = ((8, 8), (8, 2), (8, 1), (16, 1), (7, 1))   # chatglm3's and deepseek's groups
+# bf16 at whisper-medium's head_dim 64, MHA: its encoder's 1500 frames
+# (a ragged 92-key last tile) among the ragged lengths
+WGMMA_64_LENGTHS = (1, 127, 129, 1500)
+WGMMA_64_HEADS = ((4, 4),)
 WGMMA_MASKS = ((True, 0), (True, 100), (False, 0))
 # bf16 at head_dim 256 (64-key tiles): ragged lengths around them
 WGMMA_256_LENGTHS = (1, 63, 65, 129, 1000)
@@ -164,6 +209,13 @@ WGMMA_256_HEADS = ((4, 4), (4, 1))
 # serving shape: the largest replica batch of 2048-token prompts, model layout
 GEMMA_SHAPE = (10, 16, 8, 2048, 256)
 GEMMA_MASKS = (("causal", True, 0), ("window 1024", True, 1024))
+# the new serving paths' attention at their serving shapes (the largest
+# replica batch; deepseek's one batch): name, (B, Hq, Hkv, S, D), causal
+PATH_SHAPES = (("whisper-medium encoder", (10, 16, 16, 1500, 64), False),
+               ("whisper-medium decoder", (10, 16, 16, WHISPER_PROMPT_LEN, 64), True),
+               ("pixtral-12b", (10, 32, 8, PROMPT_LEN, 128), True),
+               ("chatglm3-6b", (10, 32, 2, PROMPT_LEN, 128), True),
+               ("deepseek-coder-33b", (DEEPSEEK_BATCH, 56, 8, PROMPT_LEN, 128), True))
 HEAD_DIMS = (16, 32, 64, 128, 256)
 SMEM_LIMIT = 232_448               # dynamic shared memory a block may use
 # kernel vs plain version, both fp32 inside: bf16 output rounding dominates
@@ -450,6 +502,23 @@ def phase_flash_kernel(torch, F, ops, fa, ref):
           "layout": "(B, S, H, D) viewed head-major",
           "cases": wg_cases, "max_abs_err": wg_err, "atol": ATOL["bfloat16"], "rtol": RTOL})
 
+    wg_err, wg_cases = 0.0, 0
+    for s in WGMMA_64_LENGTHS:
+        for hq, hkv in WGMMA_64_HEADS:
+            for causal, window in WGMMA_MASKS:
+                q, k, v = (randn((2, s, h, 64), torch.bfloat16).transpose(1, 2)
+                           for h in (hq, hkv, hkv))
+                _, err = run_case(q, k, v, causal, window, "bfloat16",
+                                  f"head_dim 64 sq=sk={s} heads {hq}/{hkv} "
+                                  f"causal={causal} window={window}")
+                wg_err = max(wg_err, err)
+                wg_cases += 1
+    torch.cuda.synchronize()
+    emit({"phase": "kernel_sweep", "kernel": "flash_attention", "route": "wgmma",
+          "head_dim": 64, "lengths": WGMMA_64_LENGTHS, "heads": WGMMA_64_HEADS,
+          "masks": WGMMA_MASKS, "layout": "(B, S, H, D) viewed head-major",
+          "cases": wg_cases, "max_abs_err": wg_err, "atol": ATOL["bfloat16"], "rtol": RTOL})
+
     # the serving shape, in model layout as the prefill calls it
     b, hq, hkv, s, d = SERVE_SHAPE
     q = randn((b, s, hq, d), torch.bfloat16)
@@ -493,6 +562,8 @@ def phase_flash_kernel(torch, F, ops, fa, ref):
           "roofline_share": bound_ms / ms, **row})
     del q, k, v, qt, kt, vt
     phase_flash_gemma(torch, F, ops, fa, ref, randn)
+    for name, shape, causal in PATH_SHAPES:
+        flash_shape_line(torch, F, ops, fa, ref, randn, name, shape, causal)
     return row
 
 
@@ -544,6 +615,50 @@ def phase_flash_gemma(torch, F, ops, fa, ref, randn):
               "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
               "achieved_tflops": flops / (ms * 1e-3) / 1e12,
               "roofline_share": bound_ms / ms, "launches": 1})
+
+
+def flash_shape_line(torch, F, ops, fa, ref, randn, name, shape, causal):
+    """The flash kernel at one serving path's attention shape, in model
+    layout, on the wgmma route: held against the plain version, timed beside
+    it and SDPA (its causal flag as the path's), with the bound of the
+    visible pairs' products."""
+    b, hq, hkv, s, d = shape
+    q = randn((b, s, hq, d), torch.bfloat16)
+    k = randn((b, s, hkv, d), torch.bfloat16)
+    v = randn((b, s, hkv, d), torch.bfloat16)
+    scale = d ** -0.5
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    before = dict(fa.launches_by_route)
+    got = ops.flash_attention(q, k, v, causal=causal, scale=scale)
+    if fa.launches_by_route != {**before, "wgmma": before["wgmma"] + 1}:
+        raise AssertionError(f"{name} shape: not launched once on wgmma")
+    want = ref.flash_attention_ref(qt, kt, vt, causal=causal, scale=scale).transpose(1, 2)
+    err = check_close(torch, got, want, ATOL["bfloat16"], RTOL, f"{name} shape")
+    del got, want
+    ms = cuda_ms(torch, lambda: ops.flash_attention(q, k, v, causal=causal, scale=scale),
+                 iters=20)
+    plain_ms = cuda_ms(torch, lambda: ref.flash_attention_ref(qt, kt, vt, causal=causal,
+                                                              scale=scale),
+                       iters=3, warmup=1)
+    library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, scale=scale, enable_gqa=True), iters=20)
+    flops = 4 * d * visible_pairs(s, s, causal, 0) * b * hq
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    flops_ms = flops / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    bound_ms = max(flops_ms, bytes_ms)
+    emit({"phase": "kernel_path_shape", "kernel": "flash_attention", "path": name,
+          "shape": {"q": [b, s, hq, d], "kv": [b, s, hkv, d]}, "dtype": "bfloat16",
+          "causal": causal, "group": hq // hkv, "kernel_route": fa.route_for(q.dtype),
+          "kv_tiles_per_row": len(fa.kv_tile_range(0, s, False, 0,
+                                                   block_k=fa.wgmma_block_k(d))),
+          "max_abs_err": err, "atol": ATOL["bfloat16"], "rtol": RTOL,
+          "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+          "library": "scaled_dot_product_attention, is_causal=" + str(causal),
+          "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
+          "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
+          "achieved_tflops": flops / (ms * 1e-3) / 1e12,
+          "roofline_share": bound_ms / ms, "launches": 1})
 
 
 def ssd_inputs(torch, gen, shape, bc_dtype, with_init, a_max):
@@ -750,25 +865,35 @@ def phase_ssd_kernel(torch, ops, ssd, ref):
     return rows["serving"]
 
 
-def prefill_gap(torch, prefill, params, prompts, cfg, max_len):
+def prompt_shape(batch) -> tuple:
+    """(batch, prompt length) of a prefill batch: ``tokens`` (B, S), or
+    ``input_embeds`` (B, S, F) where the prompts are embeddings."""
+    x = batch["tokens"] if batch["tokens"] is not None else batch["input_embeds"]
+    return int(x.shape[0]), int(x.shape[1])
+
+
+def prefill_gap(torch, prefill, params, batch, cfg, max_len):
     """Relative L2 and top-1 agreement of pallas against xla prefill logits
-    over the real vocab (these launches are not counted)."""
+    over the real vocab (these launches are not counted). ``batch``: the
+    prefill's ``tokens`` and any ``enc_feats`` or ``input_embeds``."""
+    kw = {k: v for k, v in batch.items() if k != "tokens"}
     with torch.no_grad():
-        lp, _ = prefill(params, prompts, cfg, max_len, impl="pallas")
-        lx, _ = prefill(params, prompts, cfg, max_len, impl="xla")
+        lp, _ = prefill(params, batch["tokens"], cfg, max_len, impl="pallas", **kw)
+        lx, _ = prefill(params, batch["tokens"], cfg, max_len, impl="xla", **kw)
     lp, lx = lp[:, :cfg.vocab_size].float(), lx[:, :cfg.vocab_size].float()
     if not (bool(torch.isfinite(lp).all()) and bool(torch.isfinite(lx).all())):
         raise AssertionError("non-finite prefill logits")
+    b, s = prompt_shape(batch)
     return {"rel_l2": float((lp - lx).norm() / lx.norm()),
             "max_abs": float((lp - lx).abs().max()),
             "top1_agree": float((lp.argmax(-1) == lx.argmax(-1)).float().mean()),
-            "batch": int(prompts.shape[0]), "prompt_len": int(prompts.shape[1])}
+            "batch": b, "prompt_len": s}
 
 
-def compare_granite(torch, cfg, params, prompts, dev):
+def compare_granite(torch, cfg, params, batch, dev):
     from repro_torch.models.model import prefill
 
-    gap = prefill_gap(torch, prefill, params, prompts, cfg, prompts.shape[1] + GEN_LEN)
+    gap = prefill_gap(torch, prefill, params, batch, cfg, prompt_shape(batch)[1] + GEN_LEN)
     if gap["rel_l2"] > PREFILL_REL_TOL:
         raise AssertionError(f"pallas vs xla prefill logits: rel L2 {gap['rel_l2']} > "
                              f"{PREFILL_REL_TOL}")
@@ -777,7 +902,7 @@ def compare_granite(torch, cfg, params, prompts, dev):
             "compare_batch": gap["batch"]}
 
 
-def compare_mamba(torch, cfg, params, prompts, dev):
+def compare_mamba(torch, cfg, params, batch, dev):
     """At 1024 tokens (one replica's batch) and on one 8192-token prompt,
     whose xla side scans chunks (S >= SSD_SCAN_THRESHOLD), against the xla
     logits of the bf16 weights cast up to fp32: the served bf16 pallas path
@@ -791,6 +916,7 @@ def compare_mamba(torch, cfg, params, prompts, dev):
     gen.manual_seed(SEED + 3)
     long_prompt = torch.randint(0, cfg.vocab_size, (1, LONG_PROMPT_LEN), generator=gen,
                                 device=dev)
+    prompts = batch["tokens"]
     params32 = copy.deepcopy(params).float()      # exact: every bf16 is an fp32
     out = {"rel_tol_fp32": SSM_PREFILL_REL_TOL, "bf16_spread_factor": SSM_BF16_SPREAD}
     cases = (("1024", prompts, MAX_LEN), ("8192", long_prompt, LONG_PROMPT_LEN))
@@ -825,7 +951,7 @@ def compare_mamba(torch, cfg, params, prompts, dev):
                                  f"xla path's {e_x}")
         del want, xla16, pal16
     for name, toks, max_len in cases:
-        gap = prefill_gap(torch, prefill, params32, toks, cfg, max_len)
+        gap = prefill_gap(torch, prefill, params32, {"tokens": toks}, cfg, max_len)
         if gap["rel_l2"] > SSM_PREFILL_REL_TOL:
             raise AssertionError(f"fp32 pallas vs xla prefill logits at {name} tokens: "
                                  f"rel L2 {gap['rel_l2']} > {SSM_PREFILL_REL_TOL}")
@@ -877,19 +1003,49 @@ def moe_dispatch_check(torch, cfg, params, prompts):
     return out
 
 
-def compare_moe(torch, cfg, params, prompts, dev):
-    out = compare_granite(torch, cfg, params, prompts, dev)
-    out["moe_dispatch"] = moe_dispatch_check(torch, cfg, params, prompts[:MOE_CHECK_BATCH])
+def compare_moe(torch, cfg, params, batch, dev):
+    out = compare_granite(torch, cfg, params, batch, dev)
+    out["moe_dispatch"] = moe_dispatch_check(torch, cfg, params,
+                                             batch["tokens"][:MOE_CHECK_BATCH])
     return out
+
+
+def serve_batch(torch, cfg, gen, dev, b, prompt_len):
+    """One replica batch of prompts from ``gen``: the prefill's ``tokens``,
+    and its ``enc_feats`` (stub audio frames over max_source_positions) or
+    ``input_embeds`` (stub patch embeddings, no tokens) per the arch."""
+    from repro_torch.models.frontends import frontend_feature_dim
+
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, prompt_len), generator=gen,
+                                     device=dev)}
+    if cfg.encoder_layers > 0:
+        batch["enc_feats"] = torch.randn((b, cfg.max_source_positions,
+                                          frontend_feature_dim(cfg)), generator=gen,
+                                         device=dev)
+    elif cfg.frontend == "vision":
+        batch["tokens"] = None
+        batch["input_embeds"] = torch.randn((b, prompt_len, frontend_feature_dim(cfg)),
+                                            generator=gen, device=dev)
+    return batch
+
+
+def launches_per_batch(cfg) -> int:
+    """Kernel launches per replica batch: one per decoder layer in the
+    prefill, and per encoder layer twice, inside the prefill and in the
+    batch's one ``encode`` that decode attends to."""
+    return cfg.n_layers + 2 * cfg.encoder_layers
 
 
 def phase_serve(torch, counters, cfg, dev, kernel, compare, route=None,
                 prompt_len=PROMPT_LEN):
     """Serve ``cfg`` for ROUNDS rounds of ``prompt_len``-token prompts;
-    ``kernel`` must launch once per layer and prefill call, all on
-    ``route`` where given, the other counters not at all."""
+    ``kernel`` must launch ``launches_per_batch(cfg)`` times per replica
+    batch, all on ``route`` where given, the other counters not at all.
+    An enc-dec arch prefills with the batch's stub audio frames, encodes
+    them once, and decodes against that ``enc_out``; a vision arch
+    prefills on stub patch embeddings through ``model.prefill``."""
     from repro_torch.configs import padded_vocab_size
-    from repro_torch.models.model import init_params
+    from repro_torch.models.model import encode, init_params, prefill
     from repro_torch.runtime.serve_loop import (HeMTBatcher, make_prefill_step,
                                                 make_serve_step)
 
@@ -899,6 +1055,7 @@ def phase_serve(torch, counters, cfg, dev, kernel, compare, route=None,
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
     emit({"phase": "serve_init", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "encoder_layers": cfg.encoder_layers, "frontend": cfg.frontend,
           "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
           "padded_vocab": padded_vocab_size(cfg), "params": n_params,
           "ssm": None if cfg.ssm is None else dataclasses.asdict(cfg.ssm),
@@ -914,13 +1071,11 @@ def phase_serve(torch, counters, cfg, dev, kernel, compare, route=None,
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 1)
     torch.cuda.reset_peak_memory_stats()
+    per_batch = launches_per_batch(cfg)
 
-    for module in counters.values():
-        module.launches = 0
-        for name in getattr(module, "launches_by_route", {}):
-            module.launches_by_route[name] = 0
+    zero_counts(counters)
     prefill_calls = 0
-    compare_prompts = None
+    compare_batch = None
     for rnd in range(ROUNDS):
         shares = batcher.dispatch(REQUESTS)
         finish, measured = {}, {}
@@ -929,25 +1084,37 @@ def phase_serve(torch, counters, cfg, dev, kernel, compare, route=None,
             if b == 0:
                 finish[name] = 0.0
                 continue
-            prompts = torch.randint(0, cfg.vocab_size, (b, prompt_len),
-                                    generator=gen, device=dev)
+            batch = serve_batch(torch, cfg, gen, dev, b, prompt_len)
             before = counters[kernel].launches
             torch.cuda.synchronize()
             t = time.perf_counter()
-            tok, state = prefill_step(params, prompts)
+            if "input_embeds" in batch:
+                with torch.no_grad():
+                    logits, state = prefill(params, None, cfg, max_len, impl="pallas",
+                                            input_embeds=batch["input_embeds"])
+                tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            else:
+                tok, state = prefill_step(params, batch["tokens"], batch.get("enc_feats"))
             prefill_host_ms = (time.perf_counter() - t) * 1e3
             torch.cuda.synchronize()
             prefill_ms = (time.perf_counter() - t) * 1e3
             prefill_calls += 1
-            if counters[kernel].launches - before != cfg.n_layers:
-                raise AssertionError(f"prefill launched {kernel} "
+            enc_out, encode_ms = None, None
+            if cfg.encoder_layers > 0:
+                t = time.perf_counter()
+                with torch.no_grad():
+                    enc_out = encode(params, batch["enc_feats"], cfg, impl="pallas")
+                torch.cuda.synchronize()
+                encode_ms = (time.perf_counter() - t) * 1e3
+            if counters[kernel].launches - before != per_batch:
+                raise AssertionError(f"a batch launched {kernel} "
                                      f"{counters[kernel].launches - before} times, "
-                                     f"want {cfg.n_layers}")
+                                     f"want {per_batch}")
             tokens = [tok]
             finite = torch.ones((), dtype=torch.bool, device=dev)
             t = time.perf_counter()
             for _ in range(GEN_LEN):
-                tok, logits, state = serve_step(params, state, tok)
+                tok, logits, state = serve_step(params, state, tok, enc_out)
                 tokens.append(tok)
                 finite &= torch.isfinite(logits).all()
             decode_host_ms = (time.perf_counter() - t) * 1e3 / GEN_LEN
@@ -968,18 +1135,19 @@ def phase_serve(torch, counters, cfg, dev, kernel, compare, route=None,
             # the synchronized time means the host, not the card, sets the pace
             measured[name] = {"batch": b, "prefill_ms": prefill_ms,
                               "prefill_host_ms": prefill_host_ms,
+                              **({"encode_ms": encode_ms} if encode_ms is not None else {}),
                               "decode_ms_per_token": decode_ms,
                               "decode_host_ms_per_token": decode_host_ms}
-            compare_prompts = prompts
-            del state, logits
+            compare_batch = batch
+            del state, logits, enc_out
         makespan = max(finish.values())
         idle = makespan - min(v for v in finish.values() if v > 0)
-        emit({"phase": "serve_round", "round": rnd, "shares": shares,
+        emit({"phase": "serve_round", "round": rnd, "arch": cfg.name, "shares": shares,
               "virtual_makespan_s": makespan, "virtual_idle_s": idle,
               "card": measured})
     launches = {name: module.launches for name, module in counters.items()}
     by_route = dict(getattr(counters[kernel], "launches_by_route", {}))
-    want = {name: cfg.n_layers * prefill_calls if name == kernel else 0
+    want = {name: per_batch * prefill_calls if name == kernel else 0
             for name in counters}
     if launches != want:
         raise AssertionError(f"{cfg.name}: launches {launches} for {prefill_calls} "
@@ -992,10 +1160,79 @@ def phase_serve(torch, counters, cfg, dev, kernel, compare, route=None,
     emit({"phase": "serve_check", "arch": cfg.name, "prefill_calls": prefill_calls,
           "launches": launches,
           **({"launches_by_route": {kernel: by_route}} if by_route else {}),
-          "launches_per_prefill": cfg.n_layers,
-          "max_memory_allocated_bytes": peak,
-          **compare(torch, cfg, params, compare_prompts, dev)})
+          "launches_per_batch": per_batch,
+          "max_memory_allocated_bytes": peak, "phase_s": time.perf_counter() - t0,
+          **compare(torch, cfg, params, compare_batch, dev)})
     return launches[kernel]
+
+
+def phase_serve_once(torch, counters, cfg, dev, batch_size=DEEPSEEK_BATCH,
+                     prompt_len=PROMPT_LEN):
+    """One prefill of ``batch_size`` x ``prompt_len`` tokens and GEN_LEN
+    decode steps of full-size ``cfg``, for a model whose weights leave no
+    room for a HeMT round's batches: the flash kernel launches once per
+    layer, all on wgmma, then pallas against xla on the same batch."""
+    from repro_torch.configs import padded_vocab_size
+    from repro_torch.models.model import init_params
+    from repro_torch.runtime.serve_loop import make_prefill_step, make_serve_step
+
+    max_len = prompt_len + GEN_LEN
+    t0 = time.perf_counter()
+    params = init_params(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    emit({"phase": "serve_init", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+          "padded_vocab": padded_vocab_size(cfg),
+          "params": sum(p.numel() for p in params.parameters()),
+          "weight_bytes": weight_bytes,
+          "attention": dataclasses.asdict(cfg.attention), "prompt_len": prompt_len,
+          "max_len": max_len, "dtype": cfg.dtype, "init_s": time.perf_counter() - t0,
+          "depth_cut": None})
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    batch = serve_batch(torch, cfg, gen, dev, batch_size, prompt_len)
+    prefill_step = make_prefill_step(cfg, max_len, impl="pallas")
+    serve_step = make_serve_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tok, state = prefill_step(params, batch["tokens"])
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    tokens = [tok]
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    t = time.perf_counter()
+    for _ in range(GEN_LEN):
+        tok, logits, state = serve_step(params, state, tok)
+        tokens.append(tok)
+        finite &= torch.isfinite(logits).all()
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t) * 1e3 / GEN_LEN
+    launches = {name: module.launches for name, module in counters.items()}
+    by_route = dict(counters["flash_attention"].launches_by_route)
+    want = {name: cfg.n_layers if name == "flash_attention" else 0 for name in counters}
+    if launches != want or by_route.get("wgmma") != cfg.n_layers:
+        raise AssertionError(f"{cfg.name}: launches {launches} by route {by_route}, "
+                             f"want {want} on wgmma")
+    toks = torch.stack(tokens)
+    if not bool(finite) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{cfg.name}: non-finite logits or a token out of range")
+    if state["length"] != max_len:
+        raise AssertionError(f"decode length {state['length']} != {max_len}")
+    del state, logits
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "serve_once", "arch": cfg.name, "batch": batch_size,
+          "prompt_len": prompt_len, "gen_len": GEN_LEN, "prefill_ms": prefill_ms,
+          "decode_ms_per_token": decode_ms, "launches": launches,
+          "launches_by_route": {"flash_attention": by_route},
+          "max_memory_allocated_bytes": peak, "hemt_rounds": 0,
+          "why_no_rounds": "the bf16 weights leave too little of the card for a HeMT "
+                           "round's replica batches",
+          **compare_granite(torch, cfg, params, batch, dev),
+          "phase_s": time.perf_counter() - t0})
+    return launches["flash_attention"]
 
 
 def phase_bucket_kernel(torch, np, ops, sb, ref, pr, skewed_hash):
@@ -1646,6 +1883,82 @@ def phase_fleet(counters):
           "launches": launches, "host_s": time.perf_counter() - t})
 
 
+def fig7_json(scheduler, sim) -> str:
+    """Paper Fig 7's OA-HeMT sequence through ``scheduler``'s
+    AdaptiveHeMTScheduler on ``sim``'s nodes (tests/test_simulator_scheduler.py):
+    the history as JSON."""
+    def nodes(k):
+        vb = 1.0 if k < FIG7_JOBS // 2 else 0.3
+        return [sim.SimNode.constant("a", 1.0), sim.SimNode.constant("b", vb)]
+
+    sched = scheduler.AdaptiveHeMTScheduler(["a", "b"], alpha=0.0)
+    hist = sched.run_simulated_sequence(nodes, n_jobs=FIG7_JOBS, total_work=FIG7_WORK)
+    return json.dumps([dataclasses.asdict(j) for j in hist], sort_keys=True)
+
+
+def phase_scheduler(torch, np, counters):
+    """The copied scheduler core on the card: ``pull_scan_torch`` in float64
+    at SCAN_SHAPE against the numpy ``pull_scan`` (SCAN_TOL rel and abs,
+    equal counts), a finite makespan gradient with respect to the works;
+    then Fig 7's adaptive sequence, whose JSON must hash as the CPU's. No
+    kernel may launch."""
+    import hashlib
+
+    from repro_torch.core import batched, scheduler
+    from repro_torch.core import simulator as sim
+
+    dev = torch.device("cuda")
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    rows, n, tasks = SCAN_SHAPE
+    rng = np.random.default_rng(SEED)
+    sp = rng.uniform(0.2, 3.0, (rows, n))
+    wk = rng.uniform(0.0, 3.0, (rows, tasks))
+    oh = np.full((rows, n), 0.01)
+    t = time.perf_counter()
+    want = batched.pull_scan(oh, sp, wk)
+    numpy_ms = (time.perf_counter() - t) * 1e3
+    oh_t, sp_t, wk_t = (torch.tensor(a, device=dev) for a in (oh, sp, wk))
+    wk_t.requires_grad_(True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got = batched.pull_scan_torch(oh_t, sp_t, wk_t)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t) * 1e3
+    if got[0].device.type != "cuda" or got[0].dtype != torch.float64:
+        raise AssertionError(f"pull_scan_torch ran on {got[0].device} in {got[0].dtype}")
+    errs = {}
+    for name, g, w in zip(("node_end", "counts", "executed"), got, want):
+        g = g.detach().cpu().numpy()
+        if name == "counts":
+            if not np.array_equal(g, w):
+                raise AssertionError("pull_scan_torch counts differ from pull_scan")
+            continue
+        np.testing.assert_allclose(g, w, rtol=SCAN_TOL, atol=SCAN_TOL, err_msg=name)
+        errs[name] = float(np.abs(g - w).max())
+    makespan = got[0].amax(dim=1).sum()
+    makespan.backward()
+    grad = wk_t.grad
+    if not bool(torch.isfinite(grad).all()) or float(grad.abs().sum()) == 0.0:
+        raise AssertionError("pull_scan_torch: makespan gradient not finite or zero")
+    t = time.perf_counter()
+    history = fig7_json(scheduler, sim)
+    fig7_s = time.perf_counter() - t
+    digest = hashlib.sha256(history.encode()).hexdigest()
+    if digest != FIG7_SHA256:
+        raise AssertionError(f"Fig 7 history hashes {digest}, the CPU's {FIG7_SHA256}: "
+                             f"{history}")
+    launches = no_launches(counters, "scheduler")
+    emit({"phase": "scheduler", "pull_scan_shape": {"rows": rows, "nodes": n,
+                                                    "tasks": tasks},
+          "dtype": "float64", "device": str(got[0].device), "max_abs_err": errs,
+          "tol": SCAN_TOL, "counts_equal": True, "card_ms": card_ms,
+          "numpy_ms": numpy_ms, "grad_abs_sum": float(grad.abs().sum()),
+          "fig7_sha256": digest, "fig7_completions": [j["completion"]
+                                                      for j in json.loads(history)],
+          "fig7_s": fig7_s, "launches": launches, "phase_s": time.perf_counter() - t0})
+
+
 def phase_checkpoint(torch, np, counters):
     """Checkpoints of mamba2-2.7b at full width and CKPT_LAYERS layers in the
     reference's format: save, save_async and restore into a fresh state on
@@ -1850,7 +2163,20 @@ def main() -> int:
         torch, counters, get_config(MOE_ARCH), dev, "flash_attention", compare_moe,
         route="wgmma")
     torch.cuda.empty_cache()
+    rows["flash_attention"]["launches"] += phase_serve(
+        torch, counters, get_config(WHISPER_ARCH), dev, "flash_attention", compare_granite,
+        route="wgmma", prompt_len=WHISPER_PROMPT_LEN)
+    torch.cuda.empty_cache()
+    for arch in (PIXTRAL_ARCH, CHATGLM_ARCH):
+        rows["flash_attention"]["launches"] += phase_serve(
+            torch, counters, get_config(arch), dev, "flash_attention", compare_granite,
+            route="wgmma")
+        torch.cuda.empty_cache()
+    rows["flash_attention"]["launches"] += phase_serve_once(
+        torch, counters, get_config(DEEPSEEK_ARCH), dev)
+    torch.cuda.empty_cache()
     phase_fleet(counters)
+    phase_scheduler(torch, np, counters)
     rows["ssd_scan"]["launches"] = phase_serve(
         torch, counters, get_config(SSM_ARCH), dev, "ssd_scan", compare_mamba,
         route="wgmma")

@@ -20,8 +20,12 @@ __all__ = [
 _ARCH_MODULES: Dict[str, str] = {
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "gemma3-12b": "gemma3_12b",
+    "deepseek-coder-33b": "deepseek_coder_33b",
     "granite-3-8b": "granite_3_8b",
+    "chatglm3-6b": "chatglm3_6b",
+    "whisper-medium": "whisper_medium",
     "mamba2-2.7b": "mamba2_2_7b",
+    "pixtral-12b": "pixtral_12b",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

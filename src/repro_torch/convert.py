@@ -2,7 +2,9 @@
 
 The reference keeps parameters as nested dicts whose stack leaves carry a
 leading ``(n_groups,)`` axis under ``stack/sub{j}/...`` (layer
-``g * period + j`` is entry ``g`` of ``sub{j}``). A dict of leaves becomes
+``g * period + j`` is entry ``g`` of ``sub{j}``); an encoder-decoder
+model's ``encoder/sub{j}/...`` is stacked the same way, by the encoder's
+own period, and its decoder layers carry ``norm_cross`` and ``cross``. A dict of leaves becomes
 an ``nn.ParameterDict``; one that also nests a dict (the SSM mixer's
 ``gate_norm``) becomes a ``ParamTree``. Leaves here are numpy arrays; bf16
 leaves arrive either as ml_dtypes ``bfloat16`` arrays or as their
@@ -10,7 +12,8 @@ leaves arrive either as ml_dtypes ``bfloat16`` arrays or as their
 bit-exactly. ``reference_paths`` is the one statement of the layout: the
 converter and the checkpointer (``repro_torch.checkpoint``) both go
 through it. A model built here or by ``models.model.init_params`` records
-its ``layer_period``, so the layout can be recovered from the model alone.
+its ``layer_period`` (and ``encoder_period``), so the layout can be
+recovered from the model alone.
 """
 from __future__ import annotations
 
@@ -22,10 +25,12 @@ from torch import nn
 
 from repro_torch import devices
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import model as model_mod
 from repro_torch.models import transformer
 from repro_torch.models.layers import ParamTree
 
 Tree = Dict[str, Any]
+STACKS = ("stack", "encoder")       # the reference's stacked (n_groups, ...) trees
 
 
 def _to_torch(a: np.ndarray, device: torch.device) -> nn.Parameter:
@@ -61,12 +66,14 @@ def reference_paths(model: nn.Module, period: int) -> Dict[Tuple[str, ...], List
     """Each leaf of the reference's parameter tree, by key path -> the port's
     parameter names it holds. A ``stack`` leaf holds layers ``j, j + period,
     ...`` (stacked along its leading ``(n_groups,)`` axis, in that order)
-    under ``("stack", f"sub{j}", ...)``; any other leaf holds one name."""
+    under ``("stack", f"sub{j}", ...)``; an ``encoder`` leaf likewise by the
+    model's ``encoder_period``; any other leaf holds one name."""
+    periods = {"stack": period, "encoder": getattr(model, "encoder_period", 1)}
     paths: Dict[Tuple[str, ...], List[str]] = {}
     for name, _ in model.named_parameters():
         parts = name.split(".")
-        if parts[0] == "stack":
-            key = ("stack", f"sub{int(parts[1]) % period}", *parts[2:])
+        if parts[0] in STACKS:
+            key = (parts[0], f"sub{int(parts[1]) % periods[parts[0]]}", *parts[2:])
         else:
             key = tuple(parts)
         paths.setdefault(key, []).append(name)
@@ -74,7 +81,17 @@ def reference_paths(model: nn.Module, period: int) -> Dict[Tuple[str, ...], List
 
 
 def is_stacked(path: Tuple[str, ...]) -> bool:
-    return path[0] == "stack"
+    return path[0] in STACKS
+
+
+def _stack(tree: Tree, n_layers: int, period: int, device: torch.device) -> nn.ModuleList:
+    """One module per layer from a stacked tree of ``sub{j}`` groups."""
+    layers = []
+    for g in range(n_layers // period):
+        for j in range(period):
+            layers.append(nn.ModuleDict({name: _params(leaves, device, g)
+                                         for name, leaves in tree[f"sub{j}"].items()}))
+    return nn.ModuleList(layers)
 
 
 def from_jax_params(tree: Tree, cfg: ModelConfig, *,
@@ -83,19 +100,19 @@ def from_jax_params(tree: Tree, cfg: ModelConfig, *,
     value for value."""
     transformer.check_ported(cfg)
     dev = devices.resolve(device)
-    period = cfg.layer_period
-    n_groups = cfg.n_layers // period
-    layers = []
-    for g in range(n_groups):
-        for j in range(period):
-            sub = tree["stack"][f"sub{j}"]
-            layers.append(nn.ModuleDict({name: _params(leaves, dev, g)
-                                         for name, leaves in sub.items()}))
-    model = nn.ModuleDict({"stack": nn.ModuleList(layers)})
+    model = nn.ModuleDict({"stack": _stack(tree["stack"], cfg.n_layers,
+                                           cfg.layer_period, dev)})
     for key in ("embed", "final_norm", "unembed"):
         if key in tree:
             model[key] = _params(tree[key], dev)
-    model.layer_period = period
+    if cfg.encoder_layers > 0:
+        enc_cfg = model_mod._encoder_cfg(cfg)
+        model["encoder"] = _stack(tree["encoder"], enc_cfg.n_layers,
+                                  enc_cfg.layer_period, dev)
+        model["enc_norm"] = _params(tree["enc_norm"], dev)
+    if "adapter" in tree:
+        model["adapter"] = _params(tree["adapter"], dev)
+    model_mod.record_periods(model, cfg)
     return model
 
 

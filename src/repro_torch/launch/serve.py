@@ -85,6 +85,8 @@ def _demo(args) -> None:
     from repro_torch.runtime.serve_loop import HeMTBatcher, make_serve_step
 
     cfg = get_reduced(args.arch)
+    if cfg.encoder_layers > 0 or cfg.frontend != "none":
+        raise SystemExit("serve demo targets decoder-only archs")
     params = init_params(cfg, args.seed, device=args.device)
     serve_step = make_serve_step(cfg)
 

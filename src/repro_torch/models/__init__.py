@@ -1,4 +1,4 @@
-"""Model code of the port (decoder-only attention archs)."""
+"""Model code of the port (attention, encoder-decoder and SSM archs)."""
 from repro_torch.models.model import (
     decode_step, forward, init_decode_state, init_params, prefill,
 )

@@ -1,10 +1,11 @@
-"""Attention: GQA, causal / sliding-window masks, KV cache (self-attention).
+"""Attention: GQA, causal / sliding-window masks, cross-attention, KV cache.
 
 Port of ``repro/models/attention.py``. ``impl`` selects the math:
 ``"xla"`` is the dense path (``dot_product_attention``), ``"chunked"`` the
 streaming online-softmax path, and ``"pallas"`` the hand-written Hopper
 kernel behind ``repro_torch.kernels.ops.flash_attention`` (its plain
-version on a CPU tensor). Cross-attention is not ported yet.
+version on a CPU tensor). Cross-attention (``kv_source=``) always takes the
+dense path with no mask and no rope, as the reference runs it.
 """
 from __future__ import annotations
 
@@ -172,10 +173,32 @@ def _project_qkv(params: Params, x: torch.Tensor, cfg: AttentionConfig,
     return q, k, v
 
 
+def _cross_attention(params: Params, x: torch.Tensor, kv_source: torch.Tensor,
+                     cfg: AttentionConfig) -> torch.Tensor:
+    """Queries from x, keys and values from kv_source (an encoder's output):
+    no rope, no mask, the dense math."""
+    b, s, _ = x.shape
+    sk = kv_source.shape[1]
+    dh, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    q = (x @ params["wq"]).reshape(b, s, hq, dh)
+    k = (kv_source @ params["wk"]).reshape(b, sk, hkv, dh)
+    v = (kv_source @ params["wv"]).reshape(b, sk, hkv, dh)
+    out = dot_product_attention(q, k, v, None, _scale(cfg))
+    return out.reshape(b, s, hq * dh) @ params["wo"]
+
+
 def attention_apply(params: Params, x: torch.Tensor, cfg: AttentionConfig,
                     positions: torch.Tensor, *, window_override: Optional[int] = None,
+                    kv_source: Optional[torch.Tensor] = None,
                     impl: str = "xla") -> torch.Tensor:
-    """Full-sequence self-attention (train / prefill). x: (B, S, D)."""
+    """Full-sequence attention (train / prefill). x: (B, S, D).
+
+    kv_source: if given, keys and values come from it (cross-attention:
+    no mask, no rope, and the dense path whatever ``impl`` says)."""
+    if kv_source is not None:
+        if impl not in IMPLS:
+            raise ValueError(f"impl must be one of {IMPLS}: {impl!r}")
+        return _cross_attention(params, x, kv_source, cfg)
     b, s, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg, positions)
     window = cfg.sliding_window if window_override is None else window_override
@@ -224,6 +247,7 @@ def attention_decode_step(params: Params, x: torch.Tensor,
                           cache: Dict[str, torch.Tensor], cache_len: int,
                           cfg: AttentionConfig, *,
                           window_override: Optional[int] = None,
+                          kv_source: Optional[torch.Tensor] = None,
                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token decode. x: (B, 1, D); cache_len: current length (the new
     token's position).
@@ -232,10 +256,14 @@ def attention_decode_step(params: Params, x: torch.Tensor,
     layer's cache is allocated at window size, so wrap-around evicts. Unlike
     the reference, which returns an updated copy, the port writes the new
     token's K/V into the given cache in place and returns that cache.
+    With ``kv_source`` (cross-attention) K and V are computed from it at
+    every step and the cache is returned untouched.
     """
     b, one, _ = x.shape
     if one != 1:
         raise ValueError(f"decode takes one token per row, got {one}")
+    if kv_source is not None:
+        return _cross_attention(params, x, kv_source, cfg), cache
     dh, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     cache_len = int(cache_len)
     cap = cache["k"].shape[1]

@@ -1,16 +1,20 @@
-"""Top-level model: embeddings + decoder stack + tied head, train loss,
-prefill, decode.
+"""Top-level model: embeddings + stack(s) + head, train loss, prefill,
+decode.
 
-Port of ``repro/models/model.py`` for decoder-only attention archs (dense,
-MoE, and gemma3's local:global windows) and pure SSM (Mamba2) archs. The parameters are an ``nn.ModuleDict`` with the
-reference's top-level keys (``embed``, ``stack``, ``final_norm``,
-optionally ``unembed``); the decode state holds one cache per layer, a KV
-ring buffer or an SSM ``{"conv", "state"}`` pair. ``init_params`` builds
-frozen (serving) weights; the training path turns ``requires_grad`` on
-(``runtime.train_loop``).
+Port of ``repro/models/model.py`` for attention archs (dense, MoE,
+gemma3's local:global windows, whisper's encoder-decoder, pixtral's
+embedding prompts) and pure SSM (Mamba2) archs. The parameters are an
+``nn.ModuleDict`` with the reference's top-level keys (``embed``,
+``stack``, ``final_norm``, optionally ``unembed``, ``encoder``,
+``enc_norm`` and ``adapter``); the decode state holds one cache per
+layer, a KV ring buffer or an SSM ``{"conv", "state"}`` pair.
+``init_params`` builds frozen (serving) weights; the training path turns
+``requires_grad`` on (``runtime.train_loop``).
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 import os
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -20,8 +24,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import devices
 from repro_torch.configs.base import ModelConfig, padded_vocab_size
-from repro_torch.models import transformer
-from repro_torch.models.layers import embed, embedding_init, rmsnorm, rmsnorm_init, unembed
+from repro_torch.models import frontends, transformer
+from repro_torch.models.layers import (
+    embed, embedding_init, rmsnorm, rmsnorm_init, sinusoidal_positions, unembed,
+)
 
 State = Dict[str, Any]
 
@@ -55,13 +61,32 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     pv = padded_vocab_size(cfg)
     p = nn.ModuleDict({
         "embed": embedding_init(gen, pv, cfg.d_model, dtype=dt, device=dev),
-        "stack": transformer.stack_init(gen, cfg, dtype=dt, device=dev),
+        "stack": transformer.stack_init(gen, cfg, cross=cfg.encoder_layers > 0,
+                                        dtype=dt, device=dev),
         "final_norm": rmsnorm_init(cfg.d_model, device=dev),
     })
     if not cfg.tie_embeddings:
         p["unembed"] = embedding_init(gen, pv, cfg.d_model, dtype=dt, device=dev)
-    p.layer_period = cfg.layer_period    # the checkpoint layout's stacking
+    if cfg.encoder_layers > 0:
+        p["encoder"] = transformer.stack_init(gen, _encoder_cfg(cfg), dtype=dt, device=dev)
+        p["enc_norm"] = rmsnorm_init(cfg.d_model, device=dev)
+    if cfg.frontend != "none":
+        p["adapter"] = frontends.adapter_init(gen, cfg, dtype=dt, device=dev)
+    record_periods(p, cfg)
     return p
+
+
+def record_periods(params: nn.ModuleDict, cfg: ModelConfig) -> None:
+    """Record the stacks' layer periods on the model: the checkpoint
+    layout's stacking (``convert.reference_paths``)."""
+    params.layer_period = cfg.layer_period
+    if cfg.encoder_layers > 0:
+        params.encoder_period = _encoder_cfg(cfg).layer_period
+
+
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    return dataclasses.replace(cfg, n_layers=cfg.encoder_layers, moe=None,
+                               attn_period=0, ssm=None, encoder_layers=0)
 
 
 def _head(params) -> Any:
@@ -72,23 +97,68 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device)[None].expand(b, s)
 
 
-def hidden_states(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+def _decoder_sinusoids(cfg: ModelConfig) -> bool:
+    """whisper: sinusoidal positions on the decoder too."""
+    return (cfg.attention is not None and cfg.attention.rope_style == "none"
+            and cfg.encoder_layers > 0)
+
+
+def encode(params, enc_feats: torch.Tensor, cfg: ModelConfig, *,
+           impl: str = "xla", remat: str = "none") -> torch.Tensor:
+    """Whisper-style encoder over precomputed (stub) frame embeddings: the
+    adapter, sinusoidal positions, the non-causal stack, then ``enc_norm``."""
+    x = frontends.adapter_apply(params["adapter"], enc_feats) \
+        if cfg.frontend != "none" else enc_feats
+    b, s = x.shape[:2]
+    x = x + sinusoidal_positions(s, cfg.d_model, device=x.device)[None].to(x.dtype)
+    x, _ = transformer.stack_apply(params["encoder"], x, _encoder_cfg(cfg),
+                                   _positions(b, s, x.device), causal=False,
+                                   impl=impl, remat=remat)
+    return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def _inputs(params, tokens: Optional[torch.Tensor], cfg: ModelConfig,
+            input_embeds: Optional[torch.Tensor], enc_feats: Optional[torch.Tensor],
+            impl: str, remat: str,
+            ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The decoder's input (B,S,D), its positions and the encoder's output
+    (None without an encoder)."""
+    if input_embeds is not None:
+        x = frontends.adapter_apply(params["adapter"], input_embeds)
+    else:
+        x = embed(params["embed"], tokens)
+    b, s = x.shape[:2]
+    if _decoder_sinusoids(cfg):
+        x = x + sinusoidal_positions(s, cfg.d_model, device=x.device)[None].to(x.dtype)
+    enc_out = None
+    if cfg.encoder_layers > 0:
+        if enc_feats is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder model needs enc_feats")
+        enc_out = encode(params, enc_feats, cfg, impl=impl, remat=remat)
+    return x, _positions(b, s, x.device), enc_out
+
+
+def hidden_states(params, tokens: Optional[torch.Tensor], cfg: ModelConfig, *,
+                  input_embeds: Optional[torch.Tensor] = None,
+                  enc_feats: Optional[torch.Tensor] = None,
                   impl: str = "xla", remat: str = "none",
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Final-norm hidden states (B,S,D) + moe aux loss (pre-unembed).
     ``remat`` ("none" | "dots" | "full") recomputes each layer in the
     backward (memory only; see ``transformer.stack_apply``)."""
-    x = embed(params["embed"], tokens)
-    b, s = x.shape[:2]
-    x, aux = transformer.stack_apply(params["stack"], x, cfg,
-                                     _positions(b, s, x.device), impl=impl, remat=remat)
+    x, pos, enc_out = _inputs(params, tokens, cfg, input_embeds, enc_feats, impl, remat)
+    x, aux = transformer.stack_apply(params["stack"], x, cfg, pos, enc_out=enc_out,
+                                     impl=impl, remat=remat)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
-def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+def forward(params, tokens: Optional[torch.Tensor], cfg: ModelConfig, *,
+            input_embeds: Optional[torch.Tensor] = None,
+            enc_feats: Optional[torch.Tensor] = None,
             impl: str = "xla", remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B,S,V), moe_aux_loss)."""
-    x, aux = hidden_states(params, tokens, cfg, impl=impl, remat=remat)
+    x, aux = hidden_states(params, tokens, cfg, input_embeds=input_embeds,
+                           enc_feats=enc_feats, impl=impl, remat=remat)
     return unembed(_head(params), x), aux
 
 
@@ -151,21 +221,23 @@ def _masked_mean(nll: torch.Tensor, batch: Dict[str, torch.Tensor]) -> torch.Ten
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
             impl: str = "xla", remat: str = "none") -> torch.Tensor:
-    """Next-token cross-entropy (+ MoE aux).
-    batch keys: tokens, labels, optionally loss_mask.
+    """Next-token cross-entropy (+ MoE aux). batch keys: tokens or
+    input_embeds, labels, enc_feats for enc-dec archs, optionally loss_mask.
 
     Padded vocabularies of at least ``CHUNKED_XENT_VOCAB`` take the chunked
     cross-entropy unless ``REPRO_NAIVE_LOSS`` or ``REPRO_DENSE_XENT`` is set
     in the environment; ``REPRO_NAIVE_LOSS`` also selects the log-softmax
     gather form of the dense loss, as in the reference."""
     labels = batch["labels"].long()
+    inputs = dict(input_embeds=batch.get("input_embeds"), enc_feats=batch.get("enc_feats"),
+                  impl=impl, remat=remat)
     if padded_vocab_size(cfg) >= CHUNKED_XENT_VOCAB \
             and not os.environ.get("REPRO_NAIVE_LOSS") \
             and not os.environ.get("REPRO_DENSE_XENT"):
-        x, aux = hidden_states(params, batch["tokens"], cfg, impl=impl, remat=remat)
+        x, aux = hidden_states(params, batch.get("tokens"), cfg, **inputs)
         nll = chunked_softmax_xent(x, _head(params)["table"], labels, cfg.vocab_size)
         return _masked_mean(nll, batch) + aux
-    logits, aux = forward(params, batch["tokens"], cfg, impl=impl, remat=remat)
+    logits, aux = forward(params, batch.get("tokens"), cfg, **inputs)
     logits = mask_pad_logits(logits, cfg)
     if os.environ.get("REPRO_NAIVE_LOSS"):
         logp = torch.log_softmax(logits.float(), dim=-1)
@@ -185,18 +257,21 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
 # decode
 # --------------------------------------------------------------------------
 
-def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, max_len: int, *,
+def prefill(params, tokens: Optional[torch.Tensor], cfg: ModelConfig, max_len: int, *,
+            enc_feats: Optional[torch.Tensor] = None,
+            input_embeds: Optional[torch.Tensor] = None,
             impl: str = "xla") -> Tuple[torch.Tensor, State]:
     """Process a prompt batch and build the decode state.
 
-    tokens: (B, S). Returns (last-token logits (B, V), decode state with
-    cache filled and length = S) — the serving prefill step.
+    tokens: (B, S) (or input_embeds (B, S, F) for vision prompts; enc_feats
+    (B, S_enc, F) for enc-dec archs). Returns (last-token logits (B, V),
+    decode state with cache filled and length = S) — the serving prefill
+    step. The encoder's output is not kept: decode takes it as ``enc_out``.
     """
-    x = embed(params["embed"], tokens)
-    b, s = x.shape[:2]
-    x, cache, _ = transformer.stack_prefill(params["stack"], x, cfg,
-                                            _positions(b, s, x.device), max_len,
-                                            impl=impl)
+    x, pos, enc_out = _inputs(params, tokens, cfg, input_embeds, enc_feats, impl, "none")
+    s = x.shape[1]
+    x, cache, _ = transformer.stack_prefill(params["stack"], x, cfg, pos, max_len,
+                                            enc_out=enc_out, impl=impl)
     x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
     logits = mask_pad_logits(unembed(_head(params), x)[:, 0, :], cfg)
     return logits, {"cache": cache, "length": s}
@@ -212,13 +287,27 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
     }
 
 
-def decode_step(params, state: State, token: torch.Tensor,
-                cfg: ModelConfig) -> Tuple[torch.Tensor, State]:
-    """token: (B,) integer. Returns (logits (B,V), new state). The caches of
+def decode_step(params, state: State, token: torch.Tensor, cfg: ModelConfig, *,
+                enc_out: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, State]:
+    """token: (B,) integer; enc_out: the encoder's output (B, S_enc, D) for
+    enc-dec archs. Returns (logits (B,V), new state). The caches of
     ``state`` are updated in place; ``length`` is a Python int."""
     x = embed(params["embed"], token[:, None])
+    if _decoder_sinusoids(cfg):
+        # whisper: sinusoidal position for the current step, computed directly
+        row = _sin_row(state["length"], cfg.d_model, x.device)
+        x = x + row.to(x.dtype)[None, None]
     x, cache = transformer.stack_decode_step(params["stack"], state["cache"], x,
-                                             state["length"], cfg)
+                                             state["length"], cfg, enc_out=enc_out)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = mask_pad_logits(unembed(_head(params), x)[:, 0, :], cfg)
     return logits, {"cache": cache, "length": state["length"] + 1}
+
+
+def _sin_row(pos: int, d: int, device) -> torch.Tensor:
+    """Row ``pos`` of ``sinusoidal_positions(·, d)``, in fp32."""
+    half = d // 2
+    inv = torch.exp(-math.log(10_000.0) / max(half - 1, 1)
+                    * torch.arange(half, dtype=torch.float32, device=device))
+    scaled = torch.tensor(float(pos), dtype=torch.float32, device=device) * inv
+    return torch.cat([torch.sin(scaled), torch.cos(scaled)])

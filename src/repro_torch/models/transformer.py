@@ -1,18 +1,22 @@
-"""Decoder stack: a loop over per-layer modules.
+"""Decoder and encoder stacks: a loop over per-layer modules.
 
 Port of ``repro/models/transformer.py`` for attention stacks and pure SSM
 (Mamba2) stacks; each layer dispatches on ``cfg.layer_kind(i)``, takes an
 MoE FFN where ``cfg.layer_is_moe(i)``, and, under a local:global window
 pattern (gemma3's 5:1), attends globally where ``cfg.layer_is_global_attn(i)``
-and through the sliding window elsewhere. The reference stacks each leaf
+and through the sliding window elsewhere. A decoder over an encoder
+(whisper) gives every layer a cross-attention block (``norm_cross``,
+``cross``) over the encoder's output; an encoder stack runs with
+``causal=False``. The reference stacks each leaf
 along a leading ``(n_groups,)`` axis and scans over layer groups; here the
 stack is an ``nn.ModuleList`` with one entry per layer (layer ``i`` plays
 the reference's ``sub{i % period}`` of group ``i // period``;
 ``repro_torch.convert`` moves the leaves), and the scan is a Python loop.
-Hybrid attention/SSM stacks and cross-attention layers are not ported yet.
+Hybrid attention/SSM stacks are not ported yet.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -33,9 +37,6 @@ def check_ported(cfg: ModelConfig) -> None:
     if cfg.attn_period or (cfg.attention is None) == (cfg.ssm is None):
         raise NotImplementedError(
             f"{cfg.name}: hybrid attention/SSM stacks are not ported yet")
-    if cfg.encoder_layers > 0 or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: encoders, cross-attention and frontends are not ported yet")
     if cfg.n_layers % cfg.layer_period:
         # the reference stacks whole layer groups only (its stack_init asserts it)
         raise NotImplementedError(
@@ -74,7 +75,7 @@ def _ffn_apply(p: Params, h: torch.Tensor, cfg: ModelConfig, idx: int,
 # ==========================================================================
 
 def _layer_init(gen: torch.Generator, cfg: ModelConfig, idx: int, *,
-                dtype=torch.bfloat16, device=None) -> nn.ModuleDict:
+                cross: bool = False, dtype=torch.bfloat16, device=None) -> nn.ModuleDict:
     check_ported(cfg)
     kind = cfg.layer_kind(idx)
     if kind == "attn":
@@ -84,6 +85,10 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig, idx: int, *,
         mixer = ssm_mod.ssm_init(gen, cfg.d_model, cfg.ssm, dtype=dtype, device=device)
     p = nn.ModuleDict({"norm1": rmsnorm_init(cfg.d_model, device=device),
                        "mixer": mixer})
+    if cross:
+        p["norm_cross"] = rmsnorm_init(cfg.d_model, device=device)
+        p["cross"] = attn.attention_init(gen, cfg.d_model, cfg.attention, dtype=dtype,
+                                         device=device)
     if cfg.d_ff > 0 and not (kind == "ssm" and cfg.family == "ssm"):
         p["norm2"] = rmsnorm_init(cfg.d_model, device=device)
         if cfg.layer_is_moe(idx):
@@ -95,18 +100,35 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig, idx: int, *,
     return p
 
 
+def _cross_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                 enc_out: Optional[torch.Tensor]) -> torch.Tensor:
+    """The cross-attention block of a decoder layer over an encoder
+    (always the dense math, as the reference's ``impl="xla"``)."""
+    if enc_out is None:
+        raise ValueError(f"{cfg.name}: a decoder over an encoder needs enc_out")
+    h = rmsnorm(p["norm_cross"], x, cfg.norm_eps)
+    return x + attn.attention_apply(p["cross"], h, cfg.attention, None,
+                                    kv_source=enc_out)
+
+
 def _layer_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, idx: int,
-                 positions: torch.Tensor, *, impl: str = "xla",
+                 positions: torch.Tensor, *, enc_out: Optional[torch.Tensor] = None,
+                 causal: bool = True, impl: str = "xla",
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Pre-norm residual layer. Returns (x, moe aux loss or None)."""
+    """Pre-norm residual layer. Returns (x, moe aux loss or None).
+    ``causal=False`` (an encoder) lifts the causal mask."""
     aux = None
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if cfg.layer_kind(idx) == "attn":
-        h = attn.attention_apply(p["mixer"], h, cfg.attention, positions,
+        acfg = cfg.attention if causal else dataclasses.replace(cfg.attention,
+                                                                causal=False)
+        h = attn.attention_apply(p["mixer"], h, acfg, positions,
                                  window_override=_window(cfg, idx), impl=impl)
     else:
         h = ssm_mod.ssm_apply(p["mixer"], h, cfg.d_model, cfg.ssm, impl=impl)
     x = x + h
+    if "cross" in p:
+        x = _cross_apply(p, x, cfg, enc_out)
     if "ffn" in p:
         h, aux = _ffn_apply(p, rmsnorm(p["norm2"], x, cfg.norm_eps), cfg, idx)
         x = x + h
@@ -117,9 +139,10 @@ def _layer_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, idx: int,
 # the stack
 # ==========================================================================
 
-def stack_init(gen: torch.Generator, cfg: ModelConfig, *, dtype=torch.bfloat16,
-               device=None) -> nn.ModuleList:
-    return nn.ModuleList(_layer_init(gen, cfg, i, dtype=dtype, device=device)
+def stack_init(gen: torch.Generator, cfg: ModelConfig, *, cross: bool = False,
+               dtype=torch.bfloat16, device=None) -> nn.ModuleList:
+    """One module per layer; ``cross`` gives each a cross-attention block."""
+    return nn.ModuleList(_layer_init(gen, cfg, i, cross=cross, dtype=dtype, device=device)
                          for i in range(cfg.n_layers))
 
 
@@ -127,9 +150,11 @@ REMATS = ("none", "dots", "full")
 
 
 def stack_apply(params: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
-                positions: torch.Tensor, *, impl: str = "xla",
+                positions: torch.Tensor, *, enc_out: Optional[torch.Tensor] = None,
+                causal: bool = True, impl: str = "xla",
                 remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x, moe aux loss summed over the MoE layers).
+    """Returns (x, moe aux loss summed over the MoE layers). ``enc_out``
+    feeds the cross-attention blocks; ``causal=False`` runs an encoder.
 
     ``remat`` "full" or "dots" runs each layer under
     ``torch.utils.checkpoint`` when gradients are being recorded: the
@@ -143,10 +168,11 @@ def stack_apply(params: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(params):
         if recompute:
-            x, aux_i = checkpoint(_layer_apply, p, x, cfg, i, positions, impl=impl,
-                                  use_reentrant=False)
+            x, aux_i = checkpoint(_layer_apply, p, x, cfg, i, positions, enc_out=enc_out,
+                                  causal=causal, impl=impl, use_reentrant=False)
         else:
-            x, aux_i = _layer_apply(p, x, cfg, i, positions, impl=impl)
+            x, aux_i = _layer_apply(p, x, cfg, i, positions, enc_out=enc_out,
+                                    causal=causal, impl=impl)
         if aux_i is not None:
             aux = aux + aux_i
     return x, aux
@@ -169,7 +195,8 @@ def stack_init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def stack_prefill(params: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
-                  positions: torch.Tensor, max_len: int, *, impl: str = "xla",
+                  positions: torch.Tensor, max_len: int, *,
+                  enc_out: Optional[torch.Tensor] = None, impl: str = "xla",
                   ) -> Tuple[torch.Tensor, Cache, torch.Tensor]:
     """Full-sequence pass that also builds the decode cache.
 
@@ -189,6 +216,8 @@ def stack_prefill(params: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
             out, c = ssm_mod.ssm_prefill(p["mixer"], hin, cfg.d_model, cfg.ssm,
                                          impl=impl)
         x = x + out
+        if "cross" in p:
+            x = _cross_apply(p, x, cfg, enc_out)
         if "ffn" in p:
             out, aux_i = _ffn_apply(p, rmsnorm(p["norm2"], x, cfg.norm_eps), cfg, i)
             x = x + out
@@ -199,10 +228,12 @@ def stack_prefill(params: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
 
 
 def stack_decode_step(params: nn.ModuleList, cache: Cache, x: torch.Tensor,
-                      cache_len: int, cfg: ModelConfig,
+                      cache_len: int, cfg: ModelConfig, *,
+                      enc_out: Optional[torch.Tensor] = None,
                       ) -> Tuple[torch.Tensor, Cache]:
     """One-token decode through the whole stack. x: (B, 1, D). Each layer's
-    cache is updated in place (see attention_decode_step, ssm_decode_step)."""
+    cache is updated in place (see attention_decode_step, ssm_decode_step);
+    cross-attention recomputes its K/V from ``enc_out`` at every step."""
     for i, (p, c) in enumerate(zip(params, cache)):
         hin = rmsnorm(p["norm1"], x, cfg.norm_eps)
         if cfg.layer_kind(i) == "attn":
@@ -212,6 +243,8 @@ def stack_decode_step(params: nn.ModuleList, cache: Cache, x: torch.Tensor,
         else:
             out, _ = ssm_mod.ssm_decode_step(p["mixer"], hin, c, cfg.d_model, cfg.ssm)
         x = x + out
+        if "cross" in p:
+            x = _cross_apply(p, x, cfg, enc_out)
         if "ffn" in p:
             x = x + _ffn_apply(p, rmsnorm(p["norm2"], x, cfg.norm_eps), cfg, i)[0]
     return x, cache

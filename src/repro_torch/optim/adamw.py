@@ -14,8 +14,9 @@ Weight decay goes to a leaf whose rank *in the reference's layout* is at
 least 2. The reference stacks every decoder-layer leaf along a leading
 ``(n_groups,)`` axis, so a layer's 1-D norm scale, ``a_log`` or ``D`` is
 rank 2 there and is decayed; the port keeps one module per layer
-(``repro_torch.convert``), so a ``stack.*`` leaf counts one rank more than
-it has here (``reference_rank``).
+(``repro_torch.convert``), so a ``stack.*`` leaf (and an encoder's
+``encoder.*`` leaf) counts one rank more than it has here
+(``reference_rank``).
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import torch
 from torch import nn
 
 Grads = Dict[str, torch.Tensor]
-STACK_PREFIX = "stack."
+STACK_PREFIXES = ("stack.", "encoder.")
 
 
 @dataclass
@@ -39,7 +40,7 @@ class AdamWState:
 def reference_rank(name: str, t: torch.Tensor) -> int:
     """The leaf's rank in the reference's layout (stack leaves carry the
     leading layer-group axis there)."""
-    return t.dim() + (1 if name.startswith(STACK_PREFIX) else 0)
+    return t.dim() + (1 if name.startswith(STACK_PREFIXES) else 0)
 
 
 def decays(name: str, t: torch.Tensor) -> bool:

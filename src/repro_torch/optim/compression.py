@@ -10,8 +10,9 @@ re-injected next step (EF-SGD convergence guarantee):
 "Per leaf" means per leaf of the reference's layout, where each decoder
 leaf is stacked over its layer group: the port stacks the matching
 per-layer gradients (``stack.{i}.<rest>`` with the same ``i % period`` and
-``<rest>``, in group order) before taking the top-k threshold or the int8
-scale, so both packages send the same values.
+``<rest>``, in group order; an encoder's ``encoder.{i}.<rest>`` by its own
+period) before taking the top-k threshold or the int8 scale, so both
+packages send the same values.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from typing import Dict, List, NamedTuple, Tuple
 import torch
 
 Grads = Dict[str, torch.Tensor]
-_STACK = re.compile(r"^stack\.(\d+)\.(.+)$")
+_STACK = re.compile(r"^(stack|encoder)\.(\d+)\.(.+)$")
 
 
 class CompressionState(NamedTuple):
@@ -36,14 +37,17 @@ def compression_init(grads_like) -> CompressionState:
                              for n, g in items})
 
 
-def reference_leaves(names, period: int = 1) -> List[List[str]]:
+def reference_leaves(names, period: int = 1, enc_period: int = 1) -> List[List[str]]:
     """The port's names grouped into the reference's leaves: a stack leaf
-    gathers layers ``j, j + period, ...`` of one ``<rest>``, in order."""
+    gathers layers ``j, j + period, ...`` of one ``<rest>``, in order (an
+    encoder leaf likewise by ``enc_period``)."""
+    periods = {"stack": period, "encoder": enc_period}
     groups: Dict[Tuple, List[Tuple[int, str]]] = {}
     for name in names:
         m = _STACK.match(name)
-        key = (int(m.group(1)) % period, m.group(2)) if m else (name,)
-        groups.setdefault(key, []).append((int(m.group(1)) if m else 0, name))
+        key = ((m.group(1), int(m.group(2)) % periods[m.group(1)], m.group(3)) if m
+               else (name,))
+        groups.setdefault(key, []).append((int(m.group(2)) if m else 0, name))
     return [[n for _, n in sorted(members)] for members in groups.values()]
 
 
@@ -65,12 +69,13 @@ def _int8_leaf(g: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def compress_decompress(grads: Grads, state: CompressionState, *, scheme: str,
                         topk_frac: float = 0.01, period: int = 1,
-                        ) -> Tuple[Grads, CompressionState]:
+                        enc_period: int = 1) -> Tuple[Grads, CompressionState]:
     """EF compress->decompress round trip (what the wire would carry).
 
     Returns (decompressed grads, new EF state). scheme: "none" | "topk" |
     "int8"; ``period`` is the model's layer period (``cfg.layer_period``),
-    which groups stack leaves as the reference stacks them.
+    which groups stack leaves as the reference stacks them, and
+    ``enc_period`` its encoder's.
     """
     if scheme == "none":
         return grads, state
@@ -78,7 +83,7 @@ def compress_decompress(grads: Grads, state: CompressionState, *, scheme: str,
         raise ValueError(f"unknown compression scheme {scheme!r}")
     sent: Grads = {}
     err: Grads = {}
-    for names in reference_leaves(grads, period):
+    for names in reference_leaves(grads, period, enc_period):
         acc = torch.stack([grads[n].float() + state.error[n] for n in names])
         out = _topk_leaf(acc, topk_frac) if scheme == "topk" else _int8_leaf(acc)
         for n, a, o in zip(names, acc, out):

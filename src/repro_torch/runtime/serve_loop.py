@@ -9,7 +9,7 @@ estimator to the fleet-serving scenario (``runtime/serving.py``).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -21,14 +21,15 @@ from repro_torch.models.model import decode_step, prefill
 
 
 def make_serve_step(cfg: ModelConfig, *, sample: str = "greedy") -> Callable:
-    """serve_step(params, state, tokens (B,)) -> (next_tokens (B,),
+    """serve_step(params, state, tokens (B,), [enc_out]) -> (next_tokens (B,),
     logits (B,V), new state). The state's caches are updated in place."""
     if sample != "greedy":
         raise ValueError(sample)
 
     @torch.no_grad()
-    def serve_step(params, state, tokens: torch.Tensor):
-        logits, new_state = decode_step(params, state, tokens, cfg)
+    def serve_step(params, state, tokens: torch.Tensor,
+                   enc_out: Optional[torch.Tensor] = None):
+        logits, new_state = decode_step(params, state, tokens, cfg, enc_out=enc_out)
         return torch.argmax(logits, dim=-1).to(torch.int32), logits, new_state
 
     return serve_step
@@ -36,12 +37,14 @@ def make_serve_step(cfg: ModelConfig, *, sample: str = "greedy") -> Callable:
 
 def make_prefill_step(cfg: ModelConfig, max_len: int, *, impl: str = "xla",
                       ) -> Callable:
-    """prefill_step(params, tokens (B,S)) -> (first sampled token (B,),
-    decode state)."""
+    """prefill_step(params, tokens (B,S), [enc_feats]) -> (first sampled
+    token (B,), decode state)."""
 
     @torch.no_grad()
-    def prefill_step(params, tokens: torch.Tensor):
-        logits, state = prefill(params, tokens, cfg, max_len, impl=impl)
+    def prefill_step(params, tokens: torch.Tensor,
+                     enc_feats: Optional[torch.Tensor] = None):
+        logits, state = prefill(params, tokens, cfg, max_len, enc_feats=enc_feats,
+                                impl=impl)
         return torch.argmax(logits, dim=-1).to(torch.int32), state
 
     return prefill_step

@@ -33,7 +33,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchBundle, ModelConfig
-from repro_torch.models.model import init_params, loss_fn
+from repro_torch.models.model import _encoder_cfg, init_params, loss_fn
 from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update
 from repro_torch.optim.compression import (
     CompressionState, compress_decompress, compression_init,
@@ -72,11 +72,13 @@ def train_state_init(seed: int, cfg: ModelConfig, bundle: ArchBundle, *,
 def value_and_grad(params: nn.ModuleDict, batch: Batch, cfg: ModelConfig, impl: str,
                    remat: str) -> Tuple[torch.Tensor, Grads]:
     """(loss, grads by parameter name) of ``loss_fn``; grads in the
-    parameters' dtypes."""
+    parameters' dtypes. A parameter the loss does not reach (the token
+    table under embedding prompts) gets zeros, as the reference's grad."""
     named = list(params.named_parameters())
     loss = loss_fn(params, batch, cfg, impl=impl, remat=remat)
-    grads = torch.autograd.grad(loss, [p for _, p in named])
-    return loss.detach(), {n: g for (n, _), g in zip(named, grads)}
+    grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+    return loss.detach(), {n: torch.zeros_like(p) if g is None else g
+                           for (n, p), g in zip(named, grads)}
 
 
 def _apply(state: TrainState, grads: Grads, cfg: ModelConfig, bundle: ArchBundle,
@@ -86,7 +88,8 @@ def _apply(state: TrainState, grads: Grads, cfg: ModelConfig, bundle: ArchBundle
     ef = state.ef
     if tc.compression != "none":
         grads, new_cs = compress_decompress(grads, CompressionState(ef),
-                                            scheme=tc.compression, period=cfg.layer_period)
+                                            scheme=tc.compression, period=cfg.layer_period,
+                                            enc_period=_encoder_cfg(cfg).layer_period)
         ef = new_cs.error
     lr = warmup_cosine(state.step, peak_lr=tc.lr, warmup_steps=tc.warmup_steps,
                        total_steps=tc.total_steps)

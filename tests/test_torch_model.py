@@ -149,8 +149,9 @@ def test_init_params_tree_matches_reference_shapes():
 
 
 def test_registry_serves_granite_only():
-    """The registry serves the ported archs, granite-3-8b and mamba2-2.7b,
-    with the reference's published sizes, and raises for the others."""
+    """The registry serves the ported archs (granite-3-8b and mamba2-2.7b
+    among them) with the reference's published sizes, and raises for the
+    others (jamba-1.5-large-398b)."""
     cfg = get_config(ARCH)
     assert (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size) == (40, 4096, 12800, 49155)
     ssm = get_config("mamba2-2.7b")
@@ -171,12 +172,16 @@ def test_cuda_entry_points_raise_without_card():
         tm.init_decode_state(cfg, 1, 8)
 
 
+# ids kept from the parametrization's first form; its "change1",
+# {"encoder_layers": 2}, is ported now and held against the reference by
+# tests/test_torch_encdec.py::test_granite_over_an_encoder_matches_jax
 @pytest.mark.parametrize("change", [
-    {"attention": dataclasses.replace(get_reduced(ARCH).attention,
-                                      sliding_window=4, local_global=(5, 1))},
-    {"encoder_layers": 2},
-    {"attn_period": 2},
-    {"ssm": SSMConfig(state_dim=16, head_dim=16, chunk=16)},   # attention + SSM
+    pytest.param({"attention": dataclasses.replace(get_reduced(ARCH).attention,
+                                                   sliding_window=4, local_global=(5, 1))},
+                 id="change0"),
+    pytest.param({"attn_period": 2}, id="change2"),
+    pytest.param({"ssm": SSMConfig(state_dim=16, head_dim=16, chunk=16)},  # attention + SSM
+                 id="change3"),
 ])
 def test_unported_architecture_parts_raise(change):
     cfg = dataclasses.replace(get_reduced(ARCH), **change)
