@@ -19,13 +19,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              bf16 on the tensor cores, with bf16 head_dim-64, -128 and -256
              cases at ragged lengths (1500 among them), GQA groups (7 and
              16 among them) and a window, gemma3-12b's serving attention
-             shape, causal and with its 1024-token window, and the new
+             shape, causal and with its 1024-token window, and the other
              paths' serving shapes: whisper-medium's non-causal encoder at
              1500 frames and its decoder, pixtral-12b, chatglm3-6b (group
-             16) and deepseek-coder-33b (group 7), each beside SDPA; then
+             16), deepseek-coder-33b (group 7), dbrx-132b (group 6) and
+             jamba-1.5-large-398b (64/8 heads), each beside SDPA; then
              ssd_scan on both routes, fp32 x on the CUDA cores and bf16 x on
              the tensor cores, over the sweep and at the serving shape and
-             one long prompt's, where the whole ``ops.ssd_scan`` call of
+             one long prompt's and at jamba's Mamba layers' (256 heads),
+             where the whole ``ops.ssd_scan`` call of
              each route is timed too, and bf16 x the tensor cores cannot
              take (P 80, P 12, N 256, fp32 B/C) routed to the CUDA cores;
              then skewed_bucket, held exactly to the plain version and to
@@ -45,18 +47,25 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              ``make_prefill_step(impl="pallas")`` and ``make_serve_step``;
              deepseek-coder-33b (62 layers, 66.7 GB of weights) serves one
              prefill of 2 x 1024 tokens and 16 decode steps and no round,
-             which would not fit beside its weights.
+             which would not fit beside its weights; dbrx-132b at 8 of its
+             40 layers (54.6 GB), then after mamba2 jamba-1.5-large-398b's
+             hybrid stack at one group of 8 layers and 8 of its 16 experts
+             (51.6 GB; each cut and its reason in the ``serve_init`` line).
              Every kernel's count is set to 0 just before a model's rounds
-             and read just after: its own kernel launched once per layer
-             and prefill (whisper: 24 + 24 + 24 per batch), the other
-             kernel never, all on the wgmma (tensor-core) route. Then pallas against xla prefill logits on
-             the same bf16 weights (granite-moe also: the MoE sort dispatch
-             against the dense oracle on layer 0's real FFN input, in fp32
-             and bf16; mamba2 at 1024 tokens and on one 8192-token prompt:
-             the bf16 pallas logits held to twice the bf16 xla path's
-             distance from the xla logits of the weights cast up to fp32,
-             and pallas vs xla on that fp32 copy, which runs the CUDA-core
-             route); between the MoE and mamba2 models, fleet serving:
+             and read just after: each kernel launched per batch as the
+             layer kinds say (flash once per attention layer, whisper's
+             encoder layers twice, the SSD scan once per SSM layer: jamba
+             1 + 7), the bucket kernel never, all on the wgmma
+             (tensor-core) routes. Then pallas against xla prefill logits on
+             the same bf16 weights (granite-moe and dbrx also: the MoE sort
+             dispatch against the dense oracle on the first MoE layer's
+             real FFN input, in fp32 and bf16; mamba2 and jamba at 1024
+             tokens and on one 8192-token prompt: the bf16 pallas logits
+             held to twice the bf16 xla path's distance from the xla logits
+             of the weights cast up to fp32 one layer at a time, and pallas
+             vs xla under the same streaming in fp32, which runs the
+             CUDA-core routes; jamba also the MoE dispatch on layer 1,
+             behind an SSM mixer); between the MoE and mamba2 models, fleet serving:
              ``repro_torch.launch.serve --simulate``'s ``main()`` in this
              process for the hemt, even and oracle batching modes, p50/p99,
              attainment and goodput per mode, no kernel launched; then the
@@ -110,6 +119,7 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -147,11 +157,12 @@ LONG_PROMPT_LEN = 8192        # one long prompt: mamba2's xla side scans chunks 
 GEMMA_ARCH = "gemma3-12b"
 GEMMA_PROMPT_LEN = 2048
 MOE_ARCH = "granite-moe-1b-a400m"
-# the MoE sort dispatch against moe_apply_dense_fallback on layer 0's real
-# FFN input for MOE_CHECK_BATCH prompts, capacity factor n_experts so no
-# pair is dropped: in fp32 the two differ in summation order only; in bf16
-# the dispatch rounds each of a token's 8 weighted expert rows and their
-# sum to bf16 (as the reference), the oracle sums them in fp32
+# the MoE sort dispatch against moe_apply_dense_fallback on the first MoE
+# layer's real FFN input for MOE_CHECK_BATCH prompts, with the least
+# capacity factor that drops no pair: in fp32 the two differ in summation
+# order only; in bf16 the dispatch rounds each of a token's top-k weighted
+# expert rows and their sum to bf16 (as the reference), the oracle sums
+# them in fp32
 MOE_CHECK_BATCH = 2
 MOE_FP32_REL_TOL = 1e-5
 MOE_BF16_REL_TOL = 2e-2
@@ -174,6 +185,20 @@ CHATGLM_ARCH = "chatglm3-6b"        # GQA group 16, half rope
 # decode steps
 DEEPSEEK_ARCH = "deepseek-coder-33b"
 DEEPSEEK_BATCH = 2
+# dbrx-132b at full width: 8 of its 40 layers (27.31 B parameters, 54.6 GB
+# of bf16; all 40 would be 263 GB), 48/8 heads (GQA group 6), 16 experts
+# of d_ff 10752, top-4, in every layer
+DBRX_ARCH = "dbrx-132b"
+DBRX_LAYERS = 8
+# jamba-1.5-large-398b at full width: one group of 8 layers (attention at
+# index 4, Mamba2 at the other 7, MoE at the odd ones), the least the
+# reference stacks; at its 16 experts that group alone is 45.1 B
+# parameters, 90.3 GB of bf16, more than the card holds, so the expert
+# pool is cut to 8 with top-2 kept: every width, every layer kind and each
+# token's work stay (25.82 B parameters, 51.6 GB)
+JAMBA_ARCH = "jamba-1.5-large-398b"
+JAMBA_LAYERS = 8
+JAMBA_EXPERTS = 8
 # the scheduler core: pull_scan_torch at benchmarks/bench_batched.py's sizes
 # (rows, nodes, tasks) in float64 against the numpy scan, as
 # tests/test_batched.py holds the JAX twin
@@ -195,7 +220,8 @@ SERVE_SHAPE = (10, 32, 8, 1024, 128)    # B, Hq, Hkv, S, D: the largest share
 # bf16 at the serving head_dim, model layout: ragged lengths around the
 # 128-row tiles, GQA groups 1, 4 and 8 (Hq 8), causal, causal + window, full
 WGMMA_LENGTHS = (1, 127, 129, 1000)
-WGMMA_HEADS = ((8, 8), (8, 2), (8, 1), (16, 1), (7, 1))   # chatglm3's and deepseek's groups
+# chatglm3's, deepseek's and dbrx's groups (16, 7, 6)
+WGMMA_HEADS = ((8, 8), (8, 2), (8, 1), (16, 1), (7, 1), (6, 1))
 # bf16 at whisper-medium's head_dim 64, MHA: its encoder's 1500 frames
 # (a ragged 92-key last tile) among the ragged lengths
 WGMMA_64_LENGTHS = (1, 127, 129, 1500)
@@ -215,7 +241,9 @@ PATH_SHAPES = (("whisper-medium encoder", (10, 16, 16, 1500, 64), False),
                ("whisper-medium decoder", (10, 16, 16, WHISPER_PROMPT_LEN, 64), True),
                ("pixtral-12b", (10, 32, 8, PROMPT_LEN, 128), True),
                ("chatglm3-6b", (10, 32, 2, PROMPT_LEN, 128), True),
-               ("deepseek-coder-33b", (DEEPSEEK_BATCH, 56, 8, PROMPT_LEN, 128), True))
+               ("deepseek-coder-33b", (DEEPSEEK_BATCH, 56, 8, PROMPT_LEN, 128), True),
+               ("dbrx-132b", (10, 48, 8, PROMPT_LEN, 128), True),
+               ("jamba-1.5-large-398b", (10, 64, 8, PROMPT_LEN, 128), True))
 HEAD_DIMS = (16, 32, 64, 128, 256)
 SMEM_LIMIT = 232_448               # dynamic shared memory a block may use
 # kernel vs plain version, both fp32 inside: bf16 output rounding dominates
@@ -245,6 +273,9 @@ SSD_NARROW = [("P 80", (2, 200, 8, 80, 1, 64), "bfloat16"),
               ("fp32 B/C", (2, 200, 8, 64, 1, 128), "float32")]
 SSD_SERVE_SHAPE = (10, 1024, 80, 64, 1, 128)   # the largest share's prefill
 SSD_LONG_SHAPE = (1, 8192, 80, 64, 1, 128)     # one long prompt
+# jamba's Mamba layers at the largest share's prefill: 256 heads of 64
+# (d_inner 16384), state 128, one group
+JAMBA_SSD_SHAPE = (10, 1024, 256, 64, 1, 128)
 # the reference sweep's tolerance: chunked against sequential sums in fp32
 SSD_ATOL = 2e-3
 SSD_NO_LIBRARY = "no single PyTorch call computes a chunked SSD scan"
@@ -797,7 +828,8 @@ def phase_ssd_kernel(torch, ops, ssd, ref):
     # timed as op_ms (bf16 y, the mode the model runs) against the plain y
     # rounded to bf16 and the plain state
     rows = {}
-    for name, shape in (("serving", SSD_SERVE_SHAPE), ("long", SSD_LONG_SHAPE)):
+    for name, shape in (("serving", SSD_SERVE_SHAPE), ("long", SSD_LONG_SHAPE),
+                        ("jamba_serving", JAMBA_SSD_SHAPE)):
         bsz, s, h, p, g, n = shape
         x, dt, a_log, B, C, _ = ssd_inputs(torch, gen, shape, torch.bfloat16, False, 16.0)
         want_y, want_f = ref.ssd_scan_ref(x.float(), dt, a_log, B, C)
@@ -902,14 +934,63 @@ def compare_granite(torch, cfg, params, batch, dev):
             "compare_batch": gap["batch"]}
 
 
+class fp32_weights:
+    """Inside the block, the parameters of ``modules`` hold their values in
+    fp32, exactly (every bf16 is an fp32), and their own bf16 tensors are
+    freed; on leaving, the fp32 values are cast back, again exactly, so the
+    weights come out bit for bit as they went in. One layer in fp32 at a
+    time is what lets a model whose fp32 copy would not fit beside it (or
+    whose layer would not fit beside its bf16 self) be held to one."""
+
+    def __init__(self, *modules):
+        self.params = list({id(p): p for m in modules for p in m.parameters()}.values())
+
+    def __enter__(self):
+        self.dtypes = [p.dtype for p in self.params]
+        for p in self.params:
+            p.data = p.data.float()
+
+    def __exit__(self, *exc):
+        for p, dtype in zip(self.params, self.dtypes):
+            p.data = p.data.to(dtype)
+
+
+def streamed_logits(torch, params, toks, cfg, impl):
+    """Last-position prefill logits over the real vocab of the weights cast
+    up to fp32, one layer's copy at a time: the embedding, each layer of the
+    stack (``transformer._layer_apply``, the mixer prefill runs without its
+    cache), then the final norm and the head."""
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import embed, rmsnorm, unembed
+    from repro_torch.models.model import mask_pad_logits
+
+    head = params["unembed"] if "unembed" in params else params["embed"]
+    b, s = toks.shape
+    pos = torch.arange(s, device=toks.device)[None].expand(b, s)
+    with torch.no_grad():
+        with fp32_weights(params["embed"]):
+            x = embed(params["embed"], toks).float()
+        for i, layer in enumerate(params["stack"]):
+            with fp32_weights(layer):
+                x, _ = transformer._layer_apply(layer, x, cfg, i, pos, impl=impl)
+        with fp32_weights(params["final_norm"], head):
+            x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
+            logits = mask_pad_logits(unembed(head, x)[:, 0, :], cfg)
+    logits = logits[:, :cfg.vocab_size].float()
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"non-finite fp32 {impl} logits")
+    return logits
+
+
 def compare_mamba(torch, cfg, params, batch, dev):
     """At 1024 tokens (one replica's batch) and on one 8192-token prompt,
     whose xla side scans chunks (S >= SSD_SCAN_THRESHOLD), against the xla
     logits of the bf16 weights cast up to fp32: the served bf16 pallas path
     (e_p) held to twice the bf16 xla path's spread (e_x); and pallas vs xla
-    on the fp32 copy (the CUDA-core route) held to SSM_PREFILL_REL_TOL."""
-    import copy
-
+    on the fp32 weights (the CUDA-core routes) held to SSM_PREFILL_REL_TOL.
+    The fp32 passes stream the weights one layer at a time
+    (``streamed_logits``), so a model whose fp32 copy would not fit beside
+    its bf16 weights (jamba's 103 GB) is held the same way."""
     from repro_torch.models.model import prefill
 
     gen = torch.Generator(device=dev)
@@ -917,13 +998,13 @@ def compare_mamba(torch, cfg, params, batch, dev):
     long_prompt = torch.randint(0, cfg.vocab_size, (1, LONG_PROMPT_LEN), generator=gen,
                                 device=dev)
     prompts = batch["tokens"]
-    params32 = copy.deepcopy(params).float()      # exact: every bf16 is an fp32
-    out = {"rel_tol_fp32": SSM_PREFILL_REL_TOL, "bf16_spread_factor": SSM_BF16_SPREAD}
+    out = {"rel_tol_fp32": SSM_PREFILL_REL_TOL, "bf16_spread_factor": SSM_BF16_SPREAD,
+           "fp32_reference": "bf16 weights cast up to fp32 one layer at a time"}
     cases = (("1024", prompts, MAX_LEN), ("8192", long_prompt, LONG_PROMPT_LEN))
 
-    def logits(p, toks, max_len, impl):
+    def logits(toks, max_len, impl):
         with torch.no_grad():
-            lg, _ = prefill(p, toks, cfg, max_len, impl=impl)
+            lg, _ = prefill(params, toks, cfg, max_len, impl=impl)
         lg = lg[:, :cfg.vocab_size].float()
         if not bool(torch.isfinite(lg).all()):
             raise AssertionError(f"non-finite {impl} prefill logits")
@@ -936,9 +1017,9 @@ def compare_mamba(torch, cfg, params, batch, dev):
         return float((a.argmax(-1) == b.argmax(-1)).float().mean())
 
     for name, toks, max_len in cases:
-        want = logits(params32, toks, max_len, "xla")
-        xla16 = logits(params, toks, max_len, "xla")
-        pal16 = logits(params, toks, max_len, "pallas")
+        want = streamed_logits(torch, params, toks, cfg, "xla")
+        xla16 = logits(toks, max_len, "xla")
+        pal16 = logits(toks, max_len, "pallas")
         e_x, e_p = rel(xla16, want), rel(pal16, want)
         out[f"bf16_{name}"] = {"e_x": e_x, "e_p": e_p, "e_p_over_e_x": e_p / e_x,
                                "top1_xla_bf16_vs_fp32": top1(xla16, want),
@@ -949,40 +1030,59 @@ def compare_mamba(torch, cfg, params, batch, dev):
             raise AssertionError(f"bf16 pallas logits at {name} tokens: rel L2 {e_p} to "
                                  f"the fp32 xla logits > {SSM_BF16_SPREAD} x the bf16 "
                                  f"xla path's {e_x}")
-        del want, xla16, pal16
-    for name, toks, max_len in cases:
-        gap = prefill_gap(torch, prefill, params32, {"tokens": toks}, cfg, max_len)
-        if gap["rel_l2"] > SSM_PREFILL_REL_TOL:
+        pal32 = streamed_logits(torch, params, toks, cfg, "pallas")
+        gap = rel(pal32, want)
+        out[f"fp32_{name}"] = {"rel_l2": gap, "max_abs": float((pal32 - want).abs().max()),
+                               "top1_agree": top1(pal32, want),
+                               "batch": int(toks.shape[0]), "prompt_len": int(toks.shape[1])}
+        if gap > SSM_PREFILL_REL_TOL:
             raise AssertionError(f"fp32 pallas vs xla prefill logits at {name} tokens: "
-                                 f"rel L2 {gap['rel_l2']} > {SSM_PREFILL_REL_TOL}")
-        out[f"fp32_{name}"] = gap
-    del params32
+                                 f"rel L2 {gap} > {SSM_PREFILL_REL_TOL}")
+        del want, xla16, pal16, pal32
     return out
 
 
+def no_drop_moe(torch, moe, cfg_moe, ffn, h):
+    """``cfg_moe`` with the least capacity factor that keeps every (token,
+    choice) pair of ``h``: its fullest expert's count per row."""
+    _, top_i, _ = moe.route(ffn, h, cfg_moe)
+    e, k = cfg_moe.n_experts, cfg_moe.top_k
+    fullest = int(torch.nn.functional.one_hot(top_i, e).sum(dim=(1, 2)).max())
+    return dataclasses.replace(cfg_moe, capacity_factor=fullest * e / (h.shape[1] * k))
+
+
 def moe_dispatch_check(torch, cfg, params, prompts):
-    """The sort dispatch against the dense oracle on layer 0's real FFN
-    input, with room for every (token, choice) pair; and the share of
+    """The sort dispatch against the dense oracle on the first MoE layer's
+    real FFN input (the layers before it and that layer's mixer run on the
+    xla path), with room for every (token, choice) pair; and the share of
     pairs the served capacity factor drops on the same input."""
-    from repro_torch.models import attention as attn
     from repro_torch.models import moe
+    from repro_torch.models import transformer
     from repro_torch.models.layers import embed, rmsnorm
 
-    p = params["stack"][0]
+    first = next(i for i in range(cfg.n_layers) if cfg.layer_is_moe(i))
+    p = params["stack"][first]
     b, s = prompts.shape
-    no_drop = dataclasses.replace(cfg.moe, capacity_factor=float(cfg.moe.n_experts))
     with torch.no_grad():
         x = embed(params["embed"], prompts)
         pos = torch.arange(s, device=x.device)[None].expand(b, s)
-        x = x + attn.attention_apply(p["mixer"], rmsnorm(p["norm1"], x, cfg.norm_eps),
-                                     cfg.attention, pos, impl="xla")
+        for i in range(first):
+            x, _ = transformer._layer_apply(params["stack"][i], x, cfg, i, pos, impl="xla")
+        mixer_only = {k: v for k, v in p.items() if k != "ffn"}
+        x, _ = transformer._layer_apply(mixer_only, x, cfg, first, pos, impl="xla")
         h = rmsnorm(p["norm2"], x, cfg.norm_eps)
-        out = {"batch": b, "prompt_len": s, "layer": 0}
-        ffn32 = {k: v.float() for k, v in p["ffn"].items()}
-        for name, ffn, hin, tol in (("fp32", ffn32, h.float(), MOE_FP32_REL_TOL),
-                                    ("bf16", p["ffn"], h, MOE_BF16_REL_TOL)):
-            got, aux = moe.moe_apply(ffn, hin, no_drop, cfg.act)
-            want, aux_w = moe.moe_apply_dense_fallback(ffn, hin, no_drop, cfg.act)
+        no_drop = no_drop_moe(torch, moe, cfg.moe, p["ffn"], h)
+        out = {"batch": b, "prompt_len": s, "layer": first,
+               "mixer": cfg.layer_kind(first),
+               "no_drop_capacity_factor": no_drop.capacity_factor}
+        # the fp32 case casts the layer's experts in place (jamba's are
+        # 19.3 GB in fp32, which would not fit beside their bf16 selves)
+        for name, weights, hin, tol in (
+                ("fp32", fp32_weights(p["ffn"]), h.float(), MOE_FP32_REL_TOL),
+                ("bf16", contextlib.nullcontext(), h, MOE_BF16_REL_TOL)):
+            with weights:
+                got, aux = moe.moe_apply(p["ffn"], hin, no_drop, cfg.act)
+                want, aux_w = moe.moe_apply_dense_fallback(p["ffn"], hin, no_drop, cfg.act)
             got, want = got.float(), want.float()
             if not (bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all())):
                 raise AssertionError(f"moe dispatch {name}: non-finite output")
@@ -1010,6 +1110,15 @@ def compare_moe(torch, cfg, params, batch, dev):
     return out
 
 
+def compare_hybrid(torch, cfg, params, batch, dev):
+    """A hybrid attention/SSM/MoE stack: its logits held as mamba2's are,
+    and the MoE dispatch on its first MoE layer (behind an SSM mixer)."""
+    out = compare_mamba(torch, cfg, params, batch, dev)
+    out["moe_dispatch"] = moe_dispatch_check(torch, cfg, params,
+                                             batch["tokens"][:MOE_CHECK_BATCH])
+    return out
+
+
 def serve_batch(torch, cfg, gen, dev, b, prompt_len):
     """One replica batch of prompts from ``gen``: the prefill's ``tokens``,
     and its ``enc_feats`` (stub audio frames over max_source_positions) or
@@ -1029,18 +1138,54 @@ def serve_batch(torch, cfg, gen, dev, b, prompt_len):
     return batch
 
 
-def launches_per_batch(cfg) -> int:
-    """Kernel launches per replica batch: one per decoder layer in the
-    prefill, and per encoder layer twice, inside the prefill and in the
-    batch's one ``encode`` that decode attends to."""
-    return cfg.n_layers + 2 * cfg.encoder_layers
+def launches_per_batch(cfg) -> dict:
+    """Each kernel's launches per replica batch, by layer kind: flash once
+    per attention layer of the decoder in the prefill, and per encoder
+    layer twice, inside the prefill and in the batch's one ``encode`` that
+    decode attends to; the SSD scan once per SSM layer; the bucket kernel
+    never."""
+    attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    return {"flash_attention": attn + 2 * cfg.encoder_layers,
+            "ssd_scan": cfg.n_layers - attn, "skewed_bucket": 0}
 
 
-def phase_serve(torch, counters, cfg, dev, kernel, compare, route=None,
-                prompt_len=PROMPT_LEN):
+def cut_config(torch, cfg, n_layers=None, n_experts=None):
+    """``cfg`` cut to ``n_layers`` and ``n_experts`` where given, and the
+    ``serve_init`` fields that state each cut and its reason: the published
+    model's and the cut model's parameters and bf16 bytes
+    (``param_count``), and the card's memory."""
+    from repro_torch.configs import param_count
+
+    card = torch.cuda.get_device_properties(0).total_memory
+    cut = cfg
+    fields = {"depth_cut": None, "expert_cut": None}
+    if n_layers is not None:
+        cut = dataclasses.replace(cut, n_layers=n_layers)
+        fields["depth_cut"] = {
+            "n_layers": n_layers, "published": cfg.n_layers,
+            "published_params": param_count(cfg), "published_bf16_bytes": 2 * param_count(cfg),
+            "why": "the published depth's bf16 weights are more than the card holds"}
+    if n_experts is not None:
+        group = dataclasses.replace(cfg, n_layers=cut.n_layers)
+        cut = dataclasses.replace(cut, moe=dataclasses.replace(cfg.moe, n_experts=n_experts))
+        fields["expert_cut"] = {
+            "n_experts": n_experts, "published": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+            "uncut_params_at_this_depth": param_count(group),
+            "uncut_bf16_bytes_at_this_depth": 2 * param_count(group),
+            "why": "more than the card holds at the least depth the reference stacks "
+                   f"(one group of {cfg.layer_period}); top-k kept, so each token's "
+                   "work is unchanged"}
+    fields["cut_params"] = param_count(cut)
+    fields["cut_bf16_bytes"] = 2 * param_count(cut)
+    fields["card_bytes"] = card
+    return cut, fields
+
+
+def phase_serve(torch, counters, cfg, dev, compare, prompt_len=PROMPT_LEN, cuts=None):
     """Serve ``cfg`` for ROUNDS rounds of ``prompt_len``-token prompts;
-    ``kernel`` must launch ``launches_per_batch(cfg)`` times per replica
-    batch, all on ``route`` where given, the other counters not at all.
+    each kernel must launch ``launches_per_batch(cfg)`` times per replica
+    batch (a hybrid stack interleaves flash and the SSD scan), all on the
+    wgmma routes. ``cuts``: the ``serve_init`` fields of ``cut_config``.
     An enc-dec arch prefills with the batch's stub audio frames, encodes
     them once, and decodes against that ``enc_out``; a vision arch
     prefills on stub patch embeddings through ``model.prefill``."""
@@ -1062,7 +1207,8 @@ def phase_serve(torch, counters, cfg, dev, kernel, compare, route=None,
           "moe": None if cfg.moe is None else dataclasses.asdict(cfg.moe),
           "attention": None if cfg.attention is None else dataclasses.asdict(cfg.attention),
           "prompt_len": prompt_len, "max_len": max_len,
-          "dtype": cfg.dtype, "init_s": time.perf_counter() - t0, "depth_cut": None})
+          "dtype": cfg.dtype, "init_s": time.perf_counter() - t0,
+          **(cuts or {"depth_cut": None})})
 
     prefill_step = make_prefill_step(cfg, max_len, impl="pallas")
     serve_step = make_serve_step(cfg)
@@ -1085,7 +1231,7 @@ def phase_serve(torch, counters, cfg, dev, kernel, compare, route=None,
                 finish[name] = 0.0
                 continue
             batch = serve_batch(torch, cfg, gen, dev, b, prompt_len)
-            before = counters[kernel].launches
+            before = {k: module.launches for k, module in counters.items()}
             torch.cuda.synchronize()
             t = time.perf_counter()
             if "input_embeds" in batch:
@@ -1106,10 +1252,9 @@ def phase_serve(torch, counters, cfg, dev, kernel, compare, route=None,
                     enc_out = encode(params, batch["enc_feats"], cfg, impl="pallas")
                 torch.cuda.synchronize()
                 encode_ms = (time.perf_counter() - t) * 1e3
-            if counters[kernel].launches - before != per_batch:
-                raise AssertionError(f"a batch launched {kernel} "
-                                     f"{counters[kernel].launches - before} times, "
-                                     f"want {per_batch}")
+            got = {k: module.launches - before[k] for k, module in counters.items()}
+            if got != per_batch:
+                raise AssertionError(f"a batch launched {got}, want {per_batch}")
             tokens = [tok]
             finite = torch.ones((), dtype=torch.bool, device=dev)
             t = time.perf_counter()
@@ -1146,32 +1291,42 @@ def phase_serve(torch, counters, cfg, dev, kernel, compare, route=None,
               "virtual_makespan_s": makespan, "virtual_idle_s": idle,
               "card": measured})
     launches = {name: module.launches for name, module in counters.items()}
-    by_route = dict(getattr(counters[kernel], "launches_by_route", {}))
-    want = {name: per_batch * prefill_calls if name == kernel else 0
-            for name in counters}
-    if launches != want:
-        raise AssertionError(f"{cfg.name}: launches {launches} for {prefill_calls} "
-                             f"prefill calls, want {want}")
-    if route is not None and by_route.get(route) != launches[kernel]:
-        raise AssertionError(f"{cfg.name}: {kernel} launches by route {by_route}, "
-                             f"want all {launches[kernel]} on {route}")
+    want = {name: n * prefill_calls for name, n in per_batch.items()}
+    by_route = launches_on_wgmma(counters, launches, want, cfg.name)
     peak = torch.cuda.max_memory_allocated()
-
+    serve_s = time.perf_counter() - t0
+    checks = compare(torch, cfg, params, compare_batch, dev)
     emit({"phase": "serve_check", "arch": cfg.name, "prefill_calls": prefill_calls,
-          "launches": launches,
-          **({"launches_by_route": {kernel: by_route}} if by_route else {}),
+          "launches": launches, "launches_by_route": by_route,
           "launches_per_batch": per_batch,
-          "max_memory_allocated_bytes": peak, "phase_s": time.perf_counter() - t0,
-          **compare(torch, cfg, params, compare_batch, dev)})
-    return launches[kernel]
+          "max_memory_allocated_bytes": peak,
+          "max_memory_allocated_bytes_with_checks": torch.cuda.max_memory_allocated(),
+          "phase_s": serve_s, "checks_s": time.perf_counter() - t0 - serve_s, **checks})
+    return launches
+
+
+def launches_on_wgmma(counters, launches, want, what) -> dict:
+    """Check the launches against ``want`` and that every launch of a
+    routed kernel went to its wgmma (tensor-core) route; returns the routed
+    kernels' counts by route."""
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, want {want}")
+    by_route = {name: dict(module.launches_by_route) for name, module in counters.items()
+                if launches[name] and hasattr(module, "launches_by_route")}
+    for name, routes in by_route.items():
+        if routes.get("wgmma") != launches[name]:
+            raise AssertionError(f"{what}: {name} launches by route {routes}, "
+                                 f"want all {launches[name]} on wgmma")
+    return by_route
 
 
 def phase_serve_once(torch, counters, cfg, dev, batch_size=DEEPSEEK_BATCH,
                      prompt_len=PROMPT_LEN):
     """One prefill of ``batch_size`` x ``prompt_len`` tokens and GEN_LEN
     decode steps of full-size ``cfg``, for a model whose weights leave no
-    room for a HeMT round's batches: the flash kernel launches once per
-    layer, all on wgmma, then pallas against xla on the same batch."""
+    room for a HeMT round's batches: each kernel launches
+    ``launches_per_batch(cfg)`` times, all on wgmma, then pallas against
+    xla on the same batch."""
     from repro_torch.configs import padded_vocab_size
     from repro_torch.models.model import init_params
     from repro_torch.runtime.serve_loop import make_prefill_step, make_serve_step
@@ -1211,11 +1366,7 @@ def phase_serve_once(torch, counters, cfg, dev, batch_size=DEEPSEEK_BATCH,
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t) * 1e3 / GEN_LEN
     launches = {name: module.launches for name, module in counters.items()}
-    by_route = dict(counters["flash_attention"].launches_by_route)
-    want = {name: cfg.n_layers if name == "flash_attention" else 0 for name in counters}
-    if launches != want or by_route.get("wgmma") != cfg.n_layers:
-        raise AssertionError(f"{cfg.name}: launches {launches} by route {by_route}, "
-                             f"want {want} on wgmma")
+    by_route = launches_on_wgmma(counters, launches, launches_per_batch(cfg), cfg.name)
     toks = torch.stack(tokens)
     if not bool(finite) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
         raise AssertionError(f"{cfg.name}: non-finite logits or a token out of range")
@@ -1226,13 +1377,13 @@ def phase_serve_once(torch, counters, cfg, dev, batch_size=DEEPSEEK_BATCH,
     emit({"phase": "serve_once", "arch": cfg.name, "batch": batch_size,
           "prompt_len": prompt_len, "gen_len": GEN_LEN, "prefill_ms": prefill_ms,
           "decode_ms_per_token": decode_ms, "launches": launches,
-          "launches_by_route": {"flash_attention": by_route},
+          "launches_by_route": by_route,
           "max_memory_allocated_bytes": peak, "hemt_rounds": 0,
           "why_no_rounds": "the bf16 weights leave too little of the card for a HeMT "
                            "round's replica batches",
           **compare_granite(torch, cfg, params, batch, dev),
           "phase_s": time.perf_counter() - t0})
-    return launches["flash_attention"]
+    return launches
 
 
 def phase_bucket_kernel(torch, np, ops, sb, ref, pr, skewed_hash):
@@ -2151,37 +2302,32 @@ def main() -> int:
     rows = {"flash_attention": phase_flash_kernel(torch, F, ops, fa, ref),
             "ssd_scan": phase_ssd_kernel(torch, ops, ssd, ref),
             "skewed_bucket": phase_bucket_kernel(torch, np, ops, sb, ref, pr, skewed_hash)}
-    rows["flash_attention"]["launches"] = phase_serve(
-        torch, counters, get_config(ARCH), dev, "flash_attention", compare_granite,
-        route="wgmma")
-    torch.cuda.empty_cache()
-    rows["flash_attention"]["launches"] += phase_serve(
-        torch, counters, get_config(GEMMA_ARCH), dev, "flash_attention", compare_granite,
-        route="wgmma", prompt_len=GEMMA_PROMPT_LEN)
-    torch.cuda.empty_cache()
-    rows["flash_attention"]["launches"] += phase_serve(
-        torch, counters, get_config(MOE_ARCH), dev, "flash_attention", compare_moe,
-        route="wgmma")
-    torch.cuda.empty_cache()
-    rows["flash_attention"]["launches"] += phase_serve(
-        torch, counters, get_config(WHISPER_ARCH), dev, "flash_attention", compare_granite,
-        route="wgmma", prompt_len=WHISPER_PROMPT_LEN)
-    torch.cuda.empty_cache()
-    for arch in (PIXTRAL_ARCH, CHATGLM_ARCH):
-        rows["flash_attention"]["launches"] += phase_serve(
-            torch, counters, get_config(arch), dev, "flash_attention", compare_granite,
-            route="wgmma")
+    for row in rows.values():
+        row["launches"] = 0
+
+    def served(launches):
+        for name, n in launches.items():
+            rows[name]["launches"] += n
         torch.cuda.empty_cache()
-    rows["flash_attention"]["launches"] += phase_serve_once(
-        torch, counters, get_config(DEEPSEEK_ARCH), dev)
-    torch.cuda.empty_cache()
+
+    served(phase_serve(torch, counters, get_config(ARCH), dev, compare_granite))
+    served(phase_serve(torch, counters, get_config(GEMMA_ARCH), dev, compare_granite,
+                       prompt_len=GEMMA_PROMPT_LEN))
+    served(phase_serve(torch, counters, get_config(MOE_ARCH), dev, compare_moe))
+    served(phase_serve(torch, counters, get_config(WHISPER_ARCH), dev, compare_granite,
+                       prompt_len=WHISPER_PROMPT_LEN))
+    for arch in (PIXTRAL_ARCH, CHATGLM_ARCH):
+        served(phase_serve(torch, counters, get_config(arch), dev, compare_granite))
+    served(phase_serve_once(torch, counters, get_config(DEEPSEEK_ARCH), dev))
+    dbrx, cuts = cut_config(torch, get_config(DBRX_ARCH), n_layers=DBRX_LAYERS)
+    served(phase_serve(torch, counters, dbrx, dev, compare_moe, cuts=cuts))
     phase_fleet(counters)
     phase_scheduler(torch, np, counters)
-    rows["ssd_scan"]["launches"] = phase_serve(
-        torch, counters, get_config(SSM_ARCH), dev, "ssd_scan", compare_mamba,
-        route="wgmma")
-    torch.cuda.empty_cache()
-    rows["skewed_bucket"]["launches"] = phase_pagerank(torch, np, counters, pr,
+    served(phase_serve(torch, counters, get_config(SSM_ARCH), dev, compare_mamba))
+    jamba, cuts = cut_config(torch, get_config(JAMBA_ARCH), n_layers=JAMBA_LAYERS,
+                             n_experts=JAMBA_EXPERTS)
+    served(phase_serve(torch, counters, jamba, dev, compare_hybrid, cuts=cuts))
+    rows["skewed_bucket"]["launches"] += phase_pagerank(torch, np, counters, pr,
                                                        skewed_hash, sim)
     torch.cuda.empty_cache()
     phase_kmeans(torch, np, counters, km, sim)

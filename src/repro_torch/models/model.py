@@ -3,7 +3,8 @@ decode.
 
 Port of ``repro/models/model.py`` for attention archs (dense, MoE,
 gemma3's local:global windows, whisper's encoder-decoder, pixtral's
-embedding prompts) and pure SSM (Mamba2) archs. The parameters are an
+embedding prompts), pure SSM (Mamba2) archs and hybrid attention/SSM
+stacks (jamba). The parameters are an
 ``nn.ModuleDict`` with the reference's top-level keys (``embed``,
 ``stack``, ``final_norm``, optionally ``unembed``, ``encoder``,
 ``enc_norm`` and ``adapter``); the decode state holds one cache per

@@ -1,7 +1,8 @@
 """Decoder and encoder stacks: a loop over per-layer modules.
 
-Port of ``repro/models/transformer.py`` for attention stacks and pure SSM
-(Mamba2) stacks; each layer dispatches on ``cfg.layer_kind(i)``, takes an
+Port of ``repro/models/transformer.py`` for attention stacks, pure SSM
+(Mamba2) stacks and hybrid stacks (jamba's one attention layer in every
+``attn_period``); each layer dispatches on ``cfg.layer_kind(i)``, takes an
 MoE FFN where ``cfg.layer_is_moe(i)``, and, under a local:global window
 pattern (gemma3's 5:1), attends globally where ``cfg.layer_is_global_attn(i)``
 and through the sliding window elsewhere. A decoder over an encoder
@@ -12,7 +13,6 @@ along a leading ``(n_groups,)`` axis and scans over layer groups; here the
 stack is an ``nn.ModuleList`` with one entry per layer (layer ``i`` plays
 the reference's ``sub{i % period}`` of group ``i // period``;
 ``repro_torch.convert`` moves the leaves), and the scan is a Python loop.
-Hybrid attention/SSM stacks are not ported yet.
 """
 from __future__ import annotations
 
@@ -34,9 +34,16 @@ Cache = List[Dict[str, torch.Tensor]]
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise for the parts of an architecture this port does not cover."""
-    if cfg.attn_period or (cfg.attention is None) == (cfg.ssm is None):
+    if cfg.attn_period:
+        # a hybrid stack: attention every attn_period layers, SSM between
+        if cfg.attention is None or cfg.ssm is None:
+            raise NotImplementedError(
+                f"{cfg.name}: attn_period {cfg.attn_period} needs both an attention "
+                "and an SSM config; a hybrid stack missing one is not ported yet")
+    elif (cfg.attention is None) == (cfg.ssm is None):
         raise NotImplementedError(
-            f"{cfg.name}: hybrid attention/SSM stacks are not ported yet")
+            f"{cfg.name}: attention beside an SSM at attn_period 0 (or neither) "
+            "is not ported yet")
     if cfg.n_layers % cfg.layer_period:
         # the reference stacks whole layer groups only (its stack_init asserts it)
         raise NotImplementedError(

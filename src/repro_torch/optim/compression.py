@@ -90,3 +90,23 @@ def compress_decompress(grads: Grads, state: CompressionState, *, scheme: str,
             sent[n] = o.to(grads[n].dtype)
             err[n] = a - o
     return sent, CompressionState(err)
+
+
+def wire_bytes(grads, scheme: str, topk_frac: float = 0.01, period: int = 1,
+               enc_period: int = 1) -> int:
+    """Bytes one pod-axis all-reduce would move per step (for the roofline
+    collective term; exact dense bf16 = 2 bytes/param). ``grads``: a dict
+    of tensors or an ``nn.Module``'s parameters. int8 sends one 4-byte
+    scale per leaf of the reference's layout, so the names are grouped by
+    ``reference_leaves`` with the model's ``period`` and ``enc_period``
+    before the leaves are counted."""
+    items = dict(grads.items() if isinstance(grads, dict) else grads.named_parameters())
+    n = sum(int(g.numel()) for g in items.values())
+    if scheme == "none":
+        return 2 * n
+    if scheme == "int8":
+        return n + 4 * len(reference_leaves(items, period, enc_period))
+    if scheme == "topk":
+        k = int(n * topk_frac)
+        return k * (4 + 4)  # value + index
+    raise ValueError(scheme)

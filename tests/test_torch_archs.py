@@ -1,10 +1,12 @@
 """pixtral-12b (prompts as stub patch embeddings through the vision
-adapter), chatglm3-6b (half rope, GQA) and deepseek-coder-33b (GQA) in the
+adapter), chatglm3-6b (half rope, GQA), deepseek-coder-33b (GQA) and
+dbrx-132b (GQA, 4 experts top-2 in every layer, untied tables) in the
 port against the JAX package, on the reduced configs in fp32 with the
 reference's weights (``repro_torch.convert``): forward, loss, prefill and
 decode on ``impl="xla"`` and ``impl="pallas"`` (the JAX side in interpret
 mode, the port's kernel wrapper on its plain version on the CPU), within
-ATOL 1e-4 (rel 1e-4), summation order only. Then the twin of
+ATOL 1e-4 (rel 1e-4), summation order only; and the forward on
+``impl="chunked"`` for every arch of ``ARCH_IDS``. Then the twin of
 ``tests/test_models.py::test_arch_smoke_forward_and_train_step`` over the
 port's ``ARCH_IDS``.
 """
@@ -28,7 +30,7 @@ torch.set_num_threads(2)
 
 ATOL = 1e-4
 B, S, MAX_LEN = 2, 12, 32
-ARCHS = ["pixtral-12b", "chatglm3-6b", "deepseek-coder-33b"]
+ARCHS = ["pixtral-12b", "chatglm3-6b", "deepseek-coder-33b", "dbrx-132b"]
 
 
 def _close(got, want, atol=ATOL):
@@ -112,6 +114,34 @@ def test_prefill_and_decode_match_jax(pair, impl):
     assert tstate["length"] == S + 4
 
 
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_chunked_forward_matches_jax(arch):
+    """``impl="chunked"`` (streaming online-softmax attention; the Mamba
+    layers take the xla math, as the reference's) against the reference's
+    own chunked forward, every arch reduced in fp32: logits and aux loss."""
+    jcfg = dataclasses.replace(j_get_reduced(arch), dtype="float32")
+    tcfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+    jparams = jm.init_params(jax.random.PRNGKey(1), jcfg)
+    tparams = convert.from_jax_params(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
+    rng = np.random.default_rng(2)
+    toks = rng.integers(1, jcfg.vocab_size, (B, S)).astype(np.int32)
+    kw = {}
+    if tcfg.frontend == "vision":
+        kw["input_embeds"] = (rng.standard_normal(stub_feature_shape(tcfg, B, S))
+                              * 0.5).astype(np.float32)
+        toks = None
+    if tcfg.encoder_layers > 0:
+        kw["enc_feats"] = (rng.standard_normal(stub_feature_shape(tcfg, B, 16))
+                           * 0.5).astype(np.float32)
+    jlogits, jaux = jm.forward(jparams, None if toks is None else jnp.asarray(toks), jcfg,
+                               impl="chunked", **{k: jnp.asarray(v) for k, v in kw.items()})
+    tlogits, taux = tm.forward(tparams, None if toks is None else torch.from_numpy(toks).long(),
+                               tcfg, impl="chunked",
+                               **{k: torch.from_numpy(v) for k, v in kw.items()})
+    _close(tlogits, jlogits)
+    assert float(taux) == pytest.approx(float(jaux), rel=1e-5, abs=1e-9)
+
+
 def test_adapter_casts_features_to_the_weights_dtype():
     from repro_torch.models import frontends
     cfg = get_reduced("pixtral-12b")
@@ -153,9 +183,14 @@ def _batch_for(cfg, seed=0):
 
 
 def test_port_serves_eight_archs():
+    """All ten of the reference's archs, in its order (the name is kept
+    from when eight were ported)."""
+    from repro.configs import ARCH_IDS as J_ARCH_IDS
+    assert ARCH_IDS == J_ARCH_IDS and len(ARCH_IDS) == 10
     assert sorted(ARCH_IDS) == sorted([
-        "granite-moe-1b-a400m", "gemma3-12b", "deepseek-coder-33b", "granite-3-8b",
-        "chatglm3-6b", "whisper-medium", "mamba2-2.7b", "pixtral-12b"])
+        "dbrx-132b", "granite-moe-1b-a400m", "gemma3-12b", "deepseek-coder-33b",
+        "granite-3-8b", "chatglm3-6b", "jamba-1.5-large-398b", "whisper-medium",
+        "mamba2-2.7b", "pixtral-12b"])
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)

@@ -138,8 +138,35 @@ def test_end_to_end_train_resume(tmp_path):
 # --- across packages --------------------------------------------------------------
 
 CASES = [("granite-3-8b", "bfloat16", "none", False), ("mamba2-2.7b", "bfloat16", "none", False),
-         ("granite-3-8b", "float32", "int8", True)]
-CASE_IDS = ["granite-bf16", "mamba2-bf16", "granite-fp32-ef-bf16moments"]
+         ("granite-3-8b", "float32", "int8", True),
+         ("jamba-1.5-large-398b", "bfloat16", "none", False),
+         ("dbrx-132b", "bfloat16", "none", False),
+         ("granite-moe-1b-a400m", "bfloat16", "none", False),
+         ("gemma3-12b", "bfloat16", "none", False),
+         ("chatglm3-6b", "float32", "int8", True)]
+CASE_IDS = ["granite-bf16", "mamba2-bf16", "granite-fp32-ef-bf16moments", "jamba-bf16-period8",
+            "dbrx-bf16", "granite-moe-bf16", "gemma3-bf16-period6",
+            "chatglm3-fp32-ef-bf16moments"]
+
+
+# int8 cases held to one int8 quantum rather than 1e-5: the next step's
+# gradient differs from the reference's in summation order, so an element
+# that lies on a rounding boundary of its leaf's int8 grid can take the
+# next code in one package. Such an element's error feedback then differs
+# by exactly one quantum q (the leaf's int8 step, twice the largest error
+# it keeps) and its parameter by part of one AdamW step (lr); every other
+# element stays within 1e-5. The granite case is held to 1e-5 everywhere.
+ONE_INT8_QUANTUM = ("chatglm3-6b",)
+
+
+def _held_to_one_int8_quantum(got, want, ef_got, ef_want, lr, what):
+    far = np.abs(got - want) > 1e-5
+    if not far.any():
+        return
+    q = 2 * float(np.abs(ef_want).max())
+    assert int(far.sum()) <= max(1, far.size // 1000), what
+    np.testing.assert_allclose(np.abs(ef_got - ef_want)[far], q, rtol=1e-3, err_msg=what)
+    assert float(np.abs(got - want)[far].max()) < lr, what
 
 
 def _pair(arch, dtype, compression, bf16_moments):
@@ -150,8 +177,11 @@ def _pair(arch, dtype, compression, bf16_moments):
     from repro.configs import get_reduced as j_get_reduced
 
     tc = dict(lr=1e-3, warmup_steps=1, total_steps=10, compression=compression)
-    jcfg = dataclasses.replace(j_get_reduced(arch), n_layers=2, dtype=dtype)
-    tcfg = dataclasses.replace(get_reduced(arch), n_layers=2, dtype=dtype)
+    # two layers, or one whole group where a group is longer (jamba's 8,
+    # gemma3's 6)
+    n_layers = max(2, get_reduced(arch).layer_period)
+    jcfg = dataclasses.replace(j_get_reduced(arch), n_layers=n_layers, dtype=dtype)
+    tcfg = dataclasses.replace(get_reduced(arch), n_layers=n_layers, dtype=dtype)
     return ((jcfg, JBundle(model=jcfg, train=JTrain(**tc), mesh=JMesh(bf16_optimizer=bf16_moments))),
             (tcfg, ArchBundle(model=tcfg, train=TrainConfig(**tc),
                               mesh=MeshConfig(bf16_optimizer=bf16_moments))))
@@ -212,11 +242,20 @@ def test_reference_checkpoint_restores_in_the_port(tmp_path, case):
     if case[1] == "float32":
         from repro_torch import convert
         got = convert.to_jax_layout(tst2.params, tcfg)
+        ef = snapshot(tst2)
         for (path, a), (_, b) in zip(
                 jax.tree_util.tree_flatten_with_path(got)[0],
                 jax.tree_util.tree_flatten_with_path(jax.tree.map(np.asarray, jst2.params))[0]):
-            np.testing.assert_allclose(a, b, atol=1e-5, rtol=0,
-                                       err_msg=jax.tree_util.keystr(path))
+            what = jax.tree_util.keystr(path)
+            if case[0] in ONE_INT8_QUANTUM:
+                key = "/".join(["ef"] + [str(p.key) for p in path])
+                ef_want = jst2.ef
+                for p in path:
+                    ef_want = ef_want[p.key]
+                ef_want = np.asarray(ef_want)
+                _held_to_one_int8_quantum(a, b, ef[key], ef_want, float(jm["lr"]), what)
+            else:
+                np.testing.assert_allclose(a, b, atol=1e-5, rtol=0, err_msg=what)
 
 
 @pytest.mark.parametrize("case", CASES, ids=CASE_IDS)

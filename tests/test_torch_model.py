@@ -149,17 +149,18 @@ def test_init_params_tree_matches_reference_shapes():
 
 
 def test_registry_serves_granite_only():
-    """The registry serves the ported archs (granite-3-8b and mamba2-2.7b
-    among them) with the reference's published sizes, and raises for the
-    others (jamba-1.5-large-398b)."""
+    """The registry serves the reference's archs (granite-3-8b and
+    mamba2-2.7b among them) with the reference's published sizes, and
+    raises the reference's KeyError for an unknown id. (The name is kept
+    from when granite was the only ported arch.)"""
     cfg = get_config(ARCH)
     assert (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size) == (40, 4096, 12800, 49155)
     ssm = get_config("mamba2-2.7b")
     assert (ssm.n_layers, ssm.d_model, ssm.d_ff, ssm.vocab_size) == (64, 2560, 0, 50280)
     assert (ssm.attention, ssm.ssm.state_dim, ssm.ssm.head_dim, ssm.ssm.chunk) == \
         (None, 128, 64, 256)
-    with pytest.raises(KeyError, match="not ported yet"):
-        get_config("jamba-1.5-large-398b")
+    with pytest.raises(KeyError, match="unknown arch 'llama-0b'; known: "):
+        get_config("llama-0b")
 
 
 def test_cuda_entry_points_raise_without_card():
