@@ -111,7 +111,27 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              both within 1e-5; then ``repro_torch.launch.train``'s
              ``main()``, in this process, on the card for 4 steps and again
              to 6, which must resume from step 4. No kernel may launch;
-10. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+10. serve_placed — full-width, full-depth granite-3-8b in bf16 served one
+             HeMT round (replicas 1.0,1.0,0.4) from weights placed on a
+             (1, 1) ("data", "model") DeviceMesh on cuda:0 under a
+             one-process NCCL group: ``runtime.sharding.param_shardings``
+             + ``place`` for the params, the prompts by
+             ``batch_shardings``, each decode state by
+             ``cache_shardings``, ``make_prefill_step(impl="pallas")`` and
+             ``make_serve_step`` as users call them. On one rank every
+             local shard is the whole tensor, so every token and every
+             decode step's logits must equal, bit for bit, the same
+             seed's round on unplaced weights run just before; flash
+             launches once per layer per batch, all on wgmma, counted with
+             the unplaced round's launches excluded; the group is
+             destroyed at the end;
+11. dryrun — ``repro_torch.launch.dryrun``'s full sweep (10 archs x 4
+             shapes x the 256- and 512-rank meshes on one-process fake
+             groups, meta-device inputs, CPU only), run in worker
+             processes while phase 10 serves; any cell in error fails the
+             run. Prints the per-device argument bytes of the train and
+             prefill cells of full jamba-1.5-large-398b and dbrx-132b;
+12. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Without a card, or run where ``src/repro_torch`` is missing, it exits
@@ -127,6 +147,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -380,6 +401,13 @@ CKPT_GLOBAL_BATCH = 4
 CKPT_LOSS_RTOL = 1e-5
 CLI_STEPS = (4, 6)
 CLI_CKPT_EVERY = 2
+
+# dryrun: the sweep's records, and the cells whose per-device bytes are printed
+DRYRUN_OUT = ROOT / "artifacts" / "dryrun_torch"
+DRYRUN_WORKERS = 6
+DRYRUN_CELLS = 80                  # 10 archs x 4 shapes x 2 meshes
+DRYRUN_BYTES = (("jamba-1.5-large-398b", "train_4k"), ("jamba-1.5-large-398b", "prefill_32k"),
+                ("dbrx-132b", "train_4k"), ("dbrx-132b", "prefill_32k"))
 
 
 def emit(obj) -> None:
@@ -2224,6 +2252,178 @@ def phase_checkpoint(torch, np, counters):
           "phase_s": time.perf_counter() - t_phase})
 
 
+def full_tensor(t):
+    """A placed tensor's whole value (a plain tensor as it is)."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def phase_serve_placed(torch, counters, dev):
+    """One HeMT round of full-size granite-3-8b from weights placed on a
+    (1, 1) mesh over one NCCL rank, against the same seed's round on the
+    unplaced weights: every token and decode logit bit for bit."""
+    from collections import Counter
+
+    from repro_torch.configs import get_bundle
+    from repro_torch.launch.mesh import host_mesh
+    from repro_torch.models.model import init_params
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.runtime.serve_loop import HeMTBatcher, make_prefill_step, make_serve_step
+
+    t0 = time.perf_counter()
+    bundle = get_bundle(ARCH)
+    cfg, mcfg = bundle.model, bundle.mesh
+    max_len = PROMPT_LEN + GEN_LEN
+    params = init_params(cfg, SEED, device=dev)
+    prefill_step = make_prefill_step(cfg, max_len, impl="pallas")
+    serve_step = make_serve_step(cfg)
+    names = [f"rep{i}" for i in range(len(REPLICAS))]
+    shares = HeMTBatcher(names, mode="hemt", min_share=1).dispatch(REQUESTS)
+    per_batch = launches_per_batch(cfg)
+    placed_as = {}
+
+    def one_round(params, mesh):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 1)
+        out = {}
+        for name in names:
+            b = shares[name]
+            if b == 0:
+                continue
+            tokens = torch.randint(0, cfg.vocab_size, (b, PROMPT_LEN), generator=gen,
+                                   device=dev)
+            if mesh is not None:
+                batch = {"tokens": tokens}
+                tokens = sh.place(batch, mesh, sh.batch_shardings(cfg, mesh, mcfg, batch))[
+                    "tokens"]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tok, state = prefill_step(params, tokens)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t) * 1e3
+            if mesh is not None:
+                c_sh = sh.cache_shardings(cfg, mesh, mcfg, state, b)
+                state = sh.place(state, mesh, c_sh)
+                placed_as["cache"] = dict(Counter(str(v) for v in c_sh.values()))
+            toks, logits = [tok], []
+            t = time.perf_counter()
+            for _ in range(GEN_LEN):
+                tok, lg, state = serve_step(params, state, tok)
+                toks.append(tok)
+                logits.append(lg)
+            torch.cuda.synchronize()
+            decode_ms = (time.perf_counter() - t) * 1e3 / GEN_LEN
+            out[name] = {"tokens": torch.stack([full_tensor(x) for x in toks]),
+                         "logits": torch.stack([full_tensor(x) for x in logits]),
+                         "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms}
+            del state
+        return out
+
+    n_batches = sum(1 for n in names if shares[n])
+    want = {k: n * n_batches for k, n in per_batch.items()}
+    zero_counts(counters)
+    plain = one_round(params, None)
+    plain_launches = {name: module.launches for name, module in counters.items()}
+    launches_on_wgmma(counters, plain_launches, want, f"{cfg.name} unplaced")
+    with host_mesh(dev) as mesh:
+        p_sh = sh.param_shardings(cfg, mesh, mcfg)
+        params = sh.place(params, mesh, p_sh)
+        kinds = Counter(type(p).__name__ for p in params.parameters())
+        if set(kinds) != {"DTensor"}:
+            raise AssertionError(f"placed params: {dict(kinds)}")
+        placed_as["params"] = dict(Counter(str(v) for v in p_sh.values()))
+        mesh_info = {"shape": list(mesh.shape), "axes": list(mesh.mesh_dim_names),
+                     "backend": torch.distributed.get_backend()}
+        zero_counts(counters)
+        placed = one_round(params, mesh)
+        launches = {name: module.launches for name, module in counters.items()}
+        by_route = launches_on_wgmma(counters, launches, want, f"{cfg.name} placed")
+        del params
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        raise AssertionError("serve_placed: the process group outlived its mesh")
+    unequal = [f"{name} {what}" for name in plain for what in ("tokens", "logits")
+               if not torch.equal(plain[name][what], placed[name][what])]
+    if unequal:
+        raise AssertionError(f"placed vs unplaced granite differ in {unequal}")
+    toks = torch.cat([r["tokens"].flatten() for r in placed.values()])
+    if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"placed granite: a token out of [0, {cfg.vocab_size})")
+    if not all(bool(torch.isfinite(r["logits"]).all()) for r in placed.values()):
+        raise AssertionError("placed granite: non-finite logits")
+    timing = {name: {"placed": {k: placed[name][k] for k in ("prefill_ms",
+                                                           "decode_ms_per_token")},
+                     "plain": {k: plain[name][k] for k in ("prefill_ms",
+                                                         "decode_ms_per_token")}}
+              for name in placed}
+    emit({"phase": "serve_placed", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "dtype": cfg.dtype, "mesh": mesh_info, "shares": shares,
+          "prompt_len": PROMPT_LEN, "gen_len": GEN_LEN, "rounds": 1,
+          "placements": placed_as, "launches": launches, "launches_by_route": by_route,
+          "unplaced_round_launches": plain_launches,
+          "bit_equal": {"tokens": sum(r["tokens"].numel() for r in placed.values()),
+                        "logits": sum(r["logits"].numel() for r in placed.values())},
+          "card": timing, "phase_s": time.perf_counter() - t0})
+    return launches
+
+
+def start_dryrun():
+    """``launch.dryrun``'s full sweep on the CPU in DRYRUN_WORKERS fresh
+    processes, driven from a thread so that ``phase_serve_placed`` runs
+    beside it; returns (thread, result)."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.configs.shapes import ALL_SHAPES
+    from repro_torch.launch import dryrun
+
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    result = {}
+
+    def run():
+        t = time.perf_counter()
+        try:
+            result["counts"] = dryrun.sweep(ARCH_IDS, [s.name for s in ALL_SHAPES],
+                                            list(dryrun.MESHES), str(DRYRUN_OUT),
+                                            workers=DRYRUN_WORKERS, echo=False)
+        except Exception as e:          # reported by phase_dryrun
+            result["error"] = f"{type(e).__name__}: {e}"
+        result["sweep_s"] = time.perf_counter() - t
+
+    thread = threading.Thread(target=run, name="dryrun")
+    thread.start()
+    return thread, result
+
+
+def phase_dryrun(thread, result):
+    """Wait for the sweep; every cell must be ok or a documented skip."""
+    from repro_torch.launch import report
+    from repro_torch.launch.op_cost import NOT_MEASURED
+
+    thread.join()
+    if "error" in result:
+        raise AssertionError(f"dry-run sweep: {result['error']}")
+    recs = {(r["arch"], r["shape"], r["mesh"]): r for r in report.load(str(DRYRUN_OUT))}
+    errors = {" ".join(k): r["error"] for k, r in recs.items() if r["status"] == "error"}
+    counts = result["counts"]
+    if errors or counts["error"]:
+        raise AssertionError(f"dry-run: {counts['error']} cells in error: {errors}")
+    if len(recs) != DRYRUN_CELLS or counts["ok"] + counts["skipped"] != DRYRUN_CELLS:
+        raise AssertionError(f"dry-run: {len(recs)} records, counts {counts}")
+    sizes = {}
+    for arch, shape in DRYRUN_BYTES:
+        for mesh in ("single", "multi"):
+            r = recs[(arch, shape, mesh)]
+            sizes[f"{arch} {shape} {mesh}"] = {
+                "n_devices": r["n_chips"],
+                "argument_bytes_per_device": r["memory_analysis"]["argument_size_in_bytes"],
+                "by_role": r["argument_bytes_by_role"],
+                "flops_per_device_even_split": r["op_cost"]["flops_per_device"],
+                "fallbacks": len(r["sharding_fallbacks"])}
+    emit({"phase": "dryrun", "cells": len(recs), **counts, "sweep_s": result["sweep_s"],
+          "workers": DRYRUN_WORKERS, "records": str(DRYRUN_OUT.relative_to(ROOT)),
+          "summary": report.summary(list(recs.values())),
+          "not_measured": list(NOT_MEASURED), "per_device_argument_bytes": sizes})
+
+
 def main() -> int:
     import torch
 
@@ -2337,6 +2537,10 @@ def main() -> int:
     phase_train_window(torch, np, counters)
     torch.cuda.empty_cache()
     phase_checkpoint(torch, np, counters)
+    torch.cuda.empty_cache()
+    dryrun = start_dryrun()
+    served(phase_serve_placed(torch, counters, dev))
+    phase_dryrun(*dryrun)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: rows[kernel][k] for k in keys} for kernel in KERNELS]})

@@ -3,17 +3,47 @@
 A CPU tensor takes the kernel's plain version (``ref``); a CUDA tensor
 launches the hand-written Hopper kernel, or the wrapper raises. There is
 no fallback from a failed build or launch to the plain version.
+
+A placed tensor (a ``DTensor``, ``runtime.sharding.place``) is unwrapped
+only when its local shard is the whole tensor — every mesh dimension
+that splits or sums it has one rank — and the result is handed back
+replicated on the same mesh; otherwise the wrapper raises. The kernels
+see one device's whole operands, never a shard.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import skewed_bucket as _sb
 from repro_torch.kernels import ssd_scan as _ssd
+
+
+def whole_local(t: Optional[torch.Tensor], what: str) -> Optional[torch.Tensor]:
+    """``t``'s local tensor when it is the whole of ``t`` (a plain tensor
+    as it is); raises for a shard or a partial sum."""
+    if not isinstance(t, DTensor):
+        return t
+    for size, p in zip(t.device_mesh.shape, t.placements):
+        if size > 1 and not p.is_replicate():
+            raise ValueError(f"{what}: a DTensor placed {t.placements} on a mesh of shape "
+                             f"{tuple(t.device_mesh.shape)} is not whole on one device; "
+                             "the kernel takes whole operands")
+    return t.to_local()
+
+
+def _mesh_of(ts: Sequence[Optional[torch.Tensor]]):
+    return next((t.device_mesh for t in ts if isinstance(t, DTensor)), None)
+
+
+def _replicated(out: torch.Tensor, mesh) -> torch.Tensor:
+    if mesh is None:
+        return out
+    return DTensor.from_local(out, mesh, [Replicate()] * mesh.ndim, run_check=False)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -24,6 +54,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     The head-major views handed to the kernel are strided views of the
     model-layout tensors, so no transpose is copied on the card.
     """
+    mesh = _mesh_of((q, k, v))
+    q, k, v = (whole_local(t, "flash_attention") for t in (q, k, v))
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if q.device.type == "cpu":
         out = ref.flash_attention_ref(qt, kt, vt, causal=causal, window=window,
@@ -31,7 +63,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         out = _fa.flash_attention(qt, kt, vt, causal=causal, window=window,
                                   scale=scale)
-    return out.transpose(1, 2)
+    return _replicated(out.transpose(1, 2), mesh)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
@@ -54,10 +86,16 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     """
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
+    mesh = _mesh_of((x, dt, a_log, B, C, init_state))
+    x, dt, a_log, B, C, init_state = (whole_local(t, "ssd_scan")
+                                      for t in (x, dt, a_log, B, C, init_state))
     if x.device.type == "cpu":
-        return ref.ssd_scan_ref(x, dt, a_log, B, C, init_state=init_state)
-    init = None if init_state is None else init_state.float().contiguous()
-    return _ssd.ssd_scan(x, dt.float(), a_log.float().contiguous(), B, C, init_state=init)
+        y, state = ref.ssd_scan_ref(x, dt, a_log, B, C, init_state=init_state)
+    else:
+        init = None if init_state is None else init_state.float().contiguous()
+        y, state = _ssd.ssd_scan(x, dt.float(), a_log.float().contiguous(), B, C,
+                                 init_state=init)
+    return _replicated(y, mesh), _replicated(state, mesh)
 
 
 def skewed_bucket(hashes: torch.Tensor, capacities: torch.Tensor) -> torch.Tensor:
@@ -68,7 +106,9 @@ def skewed_bucket(hashes: torch.Tensor, capacities: torch.Tensor) -> torch.Tenso
     Hashes and capacities are cast to int32 here, as the reference's
     ``astype(jnp.int32)`` does: a wider hash wraps modulo 2**32.
     """
+    mesh = _mesh_of((hashes, capacities))
+    hashes, capacities = (whole_local(t, "skewed_bucket") for t in (hashes, capacities))
     if hashes.device.type == "cpu":
-        return ref.skewed_bucket_ref(hashes, capacities)
-    return _sb.skewed_bucket(hashes.to(torch.int32).contiguous(),
-                             capacities.to(torch.int32).contiguous())
+        return _replicated(ref.skewed_bucket_ref(hashes, capacities), mesh)
+    return _replicated(_sb.skewed_bucket(hashes.to(torch.int32).contiguous(),
+                                         capacities.to(torch.int32).contiguous()), mesh)

@@ -10,7 +10,9 @@ stacks (jamba). The parameters are an
 ``enc_norm`` and ``adapter``); the decode state holds one cache per
 layer, a KV ring buffer or an SSM ``{"conv", "state"}`` pair.
 ``init_params`` builds frozen (serving) weights; the training path turns
-``requires_grad`` on (``runtime.train_loop``).
+``requires_grad`` on (``runtime.train_loop``). On ``device="meta"`` it
+builds shapes and dtypes only (the dry-run's stand-ins for 100B+
+configs); ``params_axes`` names each parameter's logical axes.
 """
 from __future__ import annotations
 
@@ -53,11 +55,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
                 device: Union[str, torch.device] = "cuda",
                 dtype: Optional[torch.dtype] = None) -> nn.ModuleDict:
     """Random weights from a seeded ``torch.Generator`` on ``device``.
-    ``dtype`` defaults to the config's."""
+    ``dtype`` defaults to the config's. The meta device has no generator of
+    its own: there a CPU generator is handed to every draw, which allocates
+    nothing."""
     transformer.check_ported(cfg)
     dev = devices.resolve(device)
     dt = _dtype(cfg) if dtype is None else dtype
-    gen = torch.Generator(device=dev)
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
     gen.manual_seed(seed)
     pv = padded_vocab_size(cfg)
     p = nn.ModuleDict({
@@ -75,6 +79,24 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
         p["adapter"] = frontends.adapter_init(gen, cfg, dtype=dt, device=dev)
     record_periods(p, cfg)
     return p
+
+
+def params_axes(cfg: ModelConfig) -> Dict[str, transformer.Axes]:
+    """``{parameter name: logical axes}`` for ``init_params(cfg)``'s
+    parameters (the reference's ``params_axes``, keyed by the port's names)."""
+    ax: Dict[str, transformer.Axes] = {"embed.table": ("vocab", "embed")}
+    ax.update({f"stack.{k}": v for k, v in
+               transformer.stack_axes(cfg, cross=cfg.encoder_layers > 0).items()})
+    ax["final_norm.scale"] = (None,)
+    if not cfg.tie_embeddings:
+        ax["unembed.table"] = ("vocab", "embed")
+    if cfg.encoder_layers > 0:
+        ax.update({f"encoder.{k}": v for k, v in
+                   transformer.stack_axes(_encoder_cfg(cfg)).items()})
+        ax["enc_norm.scale"] = (None,)
+    if cfg.frontend != "none":
+        ax["adapter.w"] = (None, "embed")
+    return ax
 
 
 def record_periods(params: nn.ModuleDict, cfg: ModelConfig) -> None:
@@ -142,25 +164,37 @@ def _inputs(params, tokens: Optional[torch.Tensor], cfg: ModelConfig,
 def hidden_states(params, tokens: Optional[torch.Tensor], cfg: ModelConfig, *,
                   input_embeds: Optional[torch.Tensor] = None,
                   enc_feats: Optional[torch.Tensor] = None,
-                  impl: str = "xla", remat: str = "none",
+                  impl: str = "xla", remat: str = "none", constrain=None,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Final-norm hidden states (B,S,D) + moe aux loss (pre-unembed).
     ``remat`` ("none" | "dots" | "full") recomputes each layer in the
-    backward (memory only; see ``transformer.stack_apply``)."""
+    backward (memory only; see ``transformer.stack_apply``). ``constrain``
+    is the activation sharding hook of
+    ``runtime.sharding.make_activation_constraint``."""
     x, pos, enc_out = _inputs(params, tokens, cfg, input_embeds, enc_feats, impl, remat)
+    if constrain is not None:
+        x = constrain(x)
     x, aux = transformer.stack_apply(params["stack"], x, cfg, pos, enc_out=enc_out,
-                                     impl=impl, remat=remat)
-    return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
+                                     impl=impl, remat=remat, constrain=constrain)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if constrain is not None:
+        x = constrain(x, kind="hidden")
+    return x, aux
 
 
 def forward(params, tokens: Optional[torch.Tensor], cfg: ModelConfig, *,
             input_embeds: Optional[torch.Tensor] = None,
             enc_feats: Optional[torch.Tensor] = None,
-            impl: str = "xla", remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
+            impl: str = "xla", remat: str = "none",
+            constrain=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B,S,V), moe_aux_loss)."""
     x, aux = hidden_states(params, tokens, cfg, input_embeds=input_embeds,
-                           enc_feats=enc_feats, impl=impl, remat=remat)
-    return unembed(_head(params), x), aux
+                           enc_feats=enc_feats, impl=impl, remat=remat,
+                           constrain=constrain)
+    logits = unembed(_head(params), x)
+    if constrain is not None:
+        logits = constrain(logits, kind="logits")
+    return logits, aux
 
 
 # vocabularies at or above this size use the chunked softmax-xent (the fp32
@@ -221,7 +255,7 @@ def _masked_mean(nll: torch.Tensor, batch: Dict[str, torch.Tensor]) -> torch.Ten
 
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
-            impl: str = "xla", remat: str = "none") -> torch.Tensor:
+            impl: str = "xla", remat: str = "none", constrain=None) -> torch.Tensor:
     """Next-token cross-entropy (+ MoE aux). batch keys: tokens or
     input_embeds, labels, enc_feats for enc-dec archs, optionally loss_mask.
 
@@ -231,7 +265,7 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
     gather form of the dense loss, as in the reference."""
     labels = batch["labels"].long()
     inputs = dict(input_embeds=batch.get("input_embeds"), enc_feats=batch.get("enc_feats"),
-                  impl=impl, remat=remat)
+                  impl=impl, remat=remat, constrain=constrain)
     if padded_vocab_size(cfg) >= CHUNKED_XENT_VOCAB \
             and not os.environ.get("REPRO_NAIVE_LOSS") \
             and not os.environ.get("REPRO_DENSE_XENT"):

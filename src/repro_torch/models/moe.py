@@ -121,8 +121,10 @@ def dispatch_slots(top_i: torch.Tensor, caps: torch.Tensor, cap_buf: int
 
 
 def moe_apply(params: Params, x: torch.Tensor, cfg: MoEConfig,
-              act: str = "silu") -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D). Returns (out (B,S,D), aux_loss scalar)."""
+              act: str = "silu", constrain=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D). Returns (out (B,S,D), aux_loss scalar). ``constrain``
+    (``runtime.sharding.make_activation_constraint``) places the dispatch
+    buffers, kind ``"moe_buffer"``: experts over "model", the EP all-to-all."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     caps_np = expert_capacities(cfg, s)
@@ -139,6 +141,8 @@ def moe_apply(params: Params, x: torch.Tensor, cfg: MoEConfig,
     buf = torch.zeros((b, e * cap_buf + 1, d), dtype=x.dtype, device=x.device)
     buf.scatter_(1, slot[..., None].expand(b, s * k, d), src)
     buf = buf[:, :e * cap_buf].reshape(b, e, cap_buf, d)
+    if constrain is not None:
+        buf = constrain(buf, kind="moe_buffer")
 
     # ---- expert FFN ------------------------------------------------------
     activation = _activation(act)
@@ -149,6 +153,8 @@ def moe_apply(params: Params, x: torch.Tensor, cfg: MoEConfig,
     else:
         up = activation(up)
     out_buf = torch.einsum("becf,efd->becd", up, params["w_down"])
+    if constrain is not None:
+        out_buf = constrain(out_buf, kind="moe_buffer")
     out_buf = out_buf.reshape(b, e * cap_buf, d)
     out_buf = torch.cat([out_buf, out_buf.new_zeros((b, 1, d))], dim=1)
 

@@ -75,7 +75,7 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
 
 def ssd_scan_chunks(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                     B: torch.Tensor, C: torch.Tensor, chunk: int,
-                    init_state: Optional[torch.Tensor] = None,
+                    init_state: Optional[torch.Tensor] = None, constrain=None,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """SSD with the chunk axis looped (one chunk's intra tensors live at a
     time) instead of batched: the memory-lean path for long sequences; same
@@ -85,6 +85,8 @@ def ssd_scan_chunks(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     the reference's ``preferred_element_type=float32``: here bf16-rounded
     operands cast to fp32 and multiplied in fp32. ``scores`` are rounded to
     bf16 before the second product; decays and cumsums stay fp32.
+    ``constrain`` (``runtime.sharding.make_activation_constraint``) keeps
+    the carried state head-sharded, kind ``"ssm_state"``.
     """
     bsz, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
@@ -118,6 +120,8 @@ def ssd_scan_chunks(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         decay_end = torch.exp(cum[:, -1:, :] - cum)        # (b,q,h)
         state = state * torch.exp(cum[:, -1])[:, :, None, None] + torch.einsum(
             "bqhn,bqhp->bhpn", bch, xcf * decay_end[..., None])
+        if constrain is not None:
+            state = constrain(state, kind="ssm_state")
         ys.append(y)
     return torch.stack(ys, dim=1).reshape(bsz, s, h, p), state
 
@@ -128,7 +132,7 @@ SSD_SCAN_THRESHOLD = 4096
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                 B: torch.Tensor, C: torch.Tensor, chunk: int,
-                init_state: Optional[torch.Tensor] = None,
+                init_state: Optional[torch.Tensor] = None, constrain=None,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """SSD scan, chunks batched.
 
@@ -145,10 +149,10 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         dt = F.pad(dt, (0, 0, 0, pad))
         B = F.pad(B, (0, 0, 0, 0, 0, pad))
         C = F.pad(C, (0, 0, 0, 0, 0, pad))
-        y, fin = ssd_chunked(x, dt, a_log, B, C, chunk, init_state)
+        y, fin = ssd_chunked(x, dt, a_log, B, C, chunk, init_state, constrain)
         return y[:, :s0], fin
     if x.shape[1] >= SSD_SCAN_THRESHOLD:
-        return ssd_scan_chunks(x, dt, a_log, B, C, chunk, init_state)
+        return ssd_scan_chunks(x, dt, a_log, B, C, chunk, init_state, constrain)
     bsz, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     nc = s // chunk
@@ -197,7 +201,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     return y, st
 
 
-def _mix(params: Params, x: torch.Tensor, d_model: int, cfg: SSMConfig, impl: str):
+def _mix(params: Params, x: torch.Tensor, d_model: int, cfg: SSMConfig, impl: str,
+         constrain=None):
     """The block up to the SSD scan's output: (y (B,S,D) in x's dtype,
     final SSD state, raw pre-conv xbc)."""
     if impl not in IMPLS:
@@ -222,7 +227,7 @@ def _mix(params: Params, x: torch.Tensor, d_model: int, cfg: SSMConfig, impl: st
     if impl == "pallas":
         y, final = kops.ssd_scan(xs, dt, params["a_log"], B, C, chunk=chunk)
     else:
-        y, final = ssd_chunked(xs, dt, params["a_log"], B, C, chunk)
+        y, final = ssd_chunked(xs, dt, params["a_log"], B, C, chunk, constrain=constrain)
     y = y + xs.float() * params["d_skip"][:, None]
     y = y.reshape(bsz, s, d_in).to(x.dtype)
     y = rmsnorm(params["gate_norm"], y * F.silu(z))
@@ -230,9 +235,9 @@ def _mix(params: Params, x: torch.Tensor, d_model: int, cfg: SSMConfig, impl: st
 
 
 def ssm_apply(params: Params, x: torch.Tensor, d_model: int, cfg: SSMConfig,
-              impl: str = "xla") -> torch.Tensor:
+              impl: str = "xla", constrain=None) -> torch.Tensor:
     """Full-sequence Mamba2 block. x: (B, S, D) -> (B, S, D)."""
-    return _mix(params, x, d_model, cfg, impl)[0]
+    return _mix(params, x, d_model, cfg, impl, constrain)[0]
 
 
 def ssm_prefill(params: Params, x: torch.Tensor, d_model: int, cfg: SSMConfig,

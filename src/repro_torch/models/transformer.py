@@ -13,11 +13,13 @@ along a leading ``(n_groups,)`` axis and scans over layer groups; here the
 stack is an ``nn.ModuleList`` with one entry per layer (layer ``i`` plays
 the reference's ``sub{i % period}`` of group ``i // period``;
 ``repro_torch.convert`` moves the leaves), and the scan is a Python loop.
+Every init function has a mirror ``*_axes`` function naming each leaf's
+logical axes (``runtime.sharding`` maps them onto a mesh).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -30,6 +32,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import Params, mlp_apply, mlp_init, rmsnorm, rmsnorm_init
 
 Cache = List[Dict[str, torch.Tensor]]
+Axes = Tuple[Optional[str], ...]
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -69,11 +72,11 @@ def _cache_len(cfg: ModelConfig, idx: int, max_len: int) -> int:
     return min(max_len, window) if window > 0 else max_len
 
 
-def _ffn_apply(p: Params, h: torch.Tensor, cfg: ModelConfig, idx: int,
+def _ffn_apply(p: Params, h: torch.Tensor, cfg: ModelConfig, idx: int, constrain=None,
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The FFN of layer ``idx``: (out, moe aux loss or None)."""
     if cfg.layer_is_moe(idx):
-        return moe_mod.moe_apply(p["ffn"], h, cfg.moe, cfg.act)
+        return moe_mod.moe_apply(p["ffn"], h, cfg.moe, cfg.act, constrain)
     return mlp_apply(p["ffn"], h, cfg.act), None
 
 
@@ -107,6 +110,53 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig, idx: int, *,
     return p
 
 
+def _attn_axes() -> Dict[str, Axes]:
+    return {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+            "wv": ("embed", "kv_heads"), "wo": ("heads", "embed")}
+
+
+def layer_axes(cfg: ModelConfig, idx: int, *, cross: bool = False) -> Dict[str, Any]:
+    """Logical axis names per leaf of layer ``idx``, mirroring ``_layer_init``
+    (the reference's ``_layer_axes`` without its scanned "layers" axis)."""
+    kind = cfg.layer_kind(idx)
+    ax: Dict[str, Any] = {"norm1": {"scale": (None,)}}
+    if kind == "attn":
+        ax["mixer"] = _attn_axes()
+    else:
+        ax["mixer"] = {"w_in": ("embed", "ssm_inner"),
+                       "conv_w": (None, "ssm_conv"), "conv_b": ("ssm_conv",),
+                       "a_log": (None,), "dt_bias": (None,), "d_skip": (None,),
+                       "gate_norm": {"scale": (None,)},
+                       "w_out": ("ssm_inner", "embed")}
+    if cross:
+        ax["norm_cross"] = {"scale": (None,)}
+        ax["cross"] = _attn_axes()
+    if cfg.d_ff > 0 and not (kind == "ssm" and cfg.family == "ssm"):
+        ax["norm2"] = {"scale": (None,)}
+        if cfg.layer_is_moe(idx):
+            ax["ffn"] = {"router": ("embed", None),
+                         "w_up": ("expert", "embed", "mlp"),
+                         "w_down": ("expert", "mlp", "embed")}
+            if cfg.glu:
+                ax["ffn"]["w_gate"] = ("expert", "embed", "mlp")
+        else:
+            ax["ffn"] = {"w_up": ("embed", "mlp"), "w_down": ("mlp", "embed")}
+            if cfg.glu:
+                ax["ffn"]["w_gate"] = ("embed", "mlp")
+    return ax
+
+
+def flat_axes(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Axes]:
+    """A nested axes dict as ``{dotted parameter name: axes}``."""
+    out: Dict[str, Axes] = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out.update(flat_axes(value, f"{prefix}{key}."))
+        else:
+            out[f"{prefix}{key}"] = value
+    return out
+
+
 def _cross_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
                  enc_out: Optional[torch.Tensor]) -> torch.Tensor:
     """The cross-attention block of a decoder layer over an encoder
@@ -120,10 +170,11 @@ def _cross_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
 def _layer_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, idx: int,
                  positions: torch.Tensor, *, enc_out: Optional[torch.Tensor] = None,
-                 causal: bool = True, impl: str = "xla",
+                 causal: bool = True, impl: str = "xla", constrain=None,
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Pre-norm residual layer. Returns (x, moe aux loss or None).
-    ``causal=False`` (an encoder) lifts the causal mask."""
+    ``causal=False`` (an encoder) lifts the causal mask; ``constrain`` is
+    the sharding hook of ``stack_apply``."""
     aux = None
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if cfg.layer_kind(idx) == "attn":
@@ -132,12 +183,13 @@ def _layer_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, idx: int,
         h = attn.attention_apply(p["mixer"], h, acfg, positions,
                                  window_override=_window(cfg, idx), impl=impl)
     else:
-        h = ssm_mod.ssm_apply(p["mixer"], h, cfg.d_model, cfg.ssm, impl=impl)
+        h = ssm_mod.ssm_apply(p["mixer"], h, cfg.d_model, cfg.ssm, impl=impl,
+                              constrain=constrain)
     x = x + h
     if "cross" in p:
         x = _cross_apply(p, x, cfg, enc_out)
     if "ffn" in p:
-        h, aux = _ffn_apply(p, rmsnorm(p["norm2"], x, cfg.norm_eps), cfg, idx)
+        h, aux = _ffn_apply(p, rmsnorm(p["norm2"], x, cfg.norm_eps), cfg, idx, constrain)
         x = x + h
     return x, aux
 
@@ -153,15 +205,27 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig, *, cross: bool = False,
                          for i in range(cfg.n_layers))
 
 
+def stack_axes(cfg: ModelConfig, *, cross: bool = False) -> Dict[str, Axes]:
+    """``{parameter name under the stack: logical axes}``, layer ``i``'s
+    leaves under ``"{i}."``. The reference prepends its scanned "layers"
+    axis, which is never sharded, to every leaf; here no leaf has it."""
+    return {name: axes for i in range(cfg.n_layers)
+            for name, axes in flat_axes(layer_axes(cfg, i, cross=cross), f"{i}.").items()}
+
+
 REMATS = ("none", "dots", "full")
 
 
 def stack_apply(params: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, *, enc_out: Optional[torch.Tensor] = None,
                 causal: bool = True, impl: str = "xla",
-                remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
+                remat: str = "none", constrain=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (x, moe aux loss summed over the MoE layers). ``enc_out``
     feeds the cross-attention blocks; ``causal=False`` runs an encoder.
+    ``constrain``: optional ``h -> h`` sharding hook
+    (``runtime.sharding.make_activation_constraint``) applied to the
+    residual stream after each layer group, as the reference's scan body
+    does, and handed to the MoE and SSM blocks.
 
     ``remat`` "full" or "dots" runs each layer under
     ``torch.utils.checkpoint`` when gradients are being recorded: the
@@ -176,12 +240,15 @@ def stack_apply(params: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
     for i, p in enumerate(params):
         if recompute:
             x, aux_i = checkpoint(_layer_apply, p, x, cfg, i, positions, enc_out=enc_out,
-                                  causal=causal, impl=impl, use_reentrant=False)
+                                  causal=causal, impl=impl, constrain=constrain,
+                                  use_reentrant=False)
         else:
             x, aux_i = _layer_apply(p, x, cfg, i, positions, enc_out=enc_out,
-                                    causal=causal, impl=impl)
+                                    causal=causal, impl=impl, constrain=constrain)
         if aux_i is not None:
             aux = aux + aux_i
+        if constrain is not None and i % cfg.layer_period == cfg.layer_period - 1:
+            x = constrain(x)
     return x, aux
 
 
@@ -198,6 +265,17 @@ def stack_init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                                dtype=dtype, device=device)
             if cfg.layer_kind(i) == "attn" else
             ssm_mod.init_ssm_cache(batch, cfg.d_model, cfg.ssm, dtype=dtype, device=device)
+            for i in range(cfg.n_layers)]
+
+
+def cache_axes(cfg: ModelConfig) -> List[Dict[str, Axes]]:
+    """Logical axes of each layer's cache leaves, as ``stack_init_cache``
+    lays them out: batch is data-sharded, kv heads (or SSM heads) on model."""
+    return [{"conv": ("batch", None, "ssm_conv"),
+             "state": ("batch", "ssm_heads_cache", None, None)}
+            if cfg.layer_kind(i) == "ssm" else
+            {"k": ("batch", "cache_seq", "kv_heads_cache", None),
+             "v": ("batch", "cache_seq", "kv_heads_cache", None)}
             for i in range(cfg.n_layers)]
 
 

@@ -3,8 +3,9 @@
 Port of ``repro/runtime/elastic.py``: ``FleetExhaustedError``, ``replan``
 and ``scale_event_log`` are copied verbatim apart from imports.
 ``reshard_restore`` keeps the reference's signature and errors; its
-``shardings`` may be a ``torch.device`` that the restored state is moved to
-(DTensor placements wait for a port of ``runtime/sharding``).
+``shardings`` may be a ``torch.device`` that the restored state is moved
+to, or a ``(mesh, placements)`` pair from ``runtime.sharding`` that places
+it on a ``DeviceMesh`` (the reference's NamedShardings).
 
 The HeMT insight makes elasticity cheap: capacity change is just another
 speed change, so the planner re-skews instead of redistributing state.
@@ -21,11 +22,13 @@ Sequence of events on a resize (DESIGN.md §8):
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.core.planner import GrainPlanner
+from repro_torch.runtime.sharding import Placements, place
 
 Pytree = Any
 
@@ -79,14 +82,22 @@ def _place(tree: Pytree, device: torch.device) -> Pytree:
 
 
 def reshard_restore(ckpt_manager, state_like: Pytree,
-                    shardings: Optional[Union[str, torch.device]] = None) -> Pytree:
-    """Restore the latest checkpoint and (optionally) move it to the device
-    ``shardings`` — the resize path. Returns ``(step, state)``."""
+                    shardings: Optional[Union[str, torch.device,
+                                              Tuple[DeviceMesh, Dict[str, Placements]]]] = None,
+                    ) -> Pytree:
+    """Restore the latest checkpoint and (optionally) place it — the resize
+    path. ``shardings`` is a device the state moves to, or ``(mesh,
+    placements)``: every leaf is distributed on the mesh by its placements
+    (``runtime.sharding.place``; the names of the ``*_shardings``
+    functions, e.g. ``train_state_shardings``). Returns ``(step, state)``."""
     restored = ckpt_manager.restore_latest(state_like)
     if restored is None:
         raise FileNotFoundError("no checkpoint to resume from")
     step, state, _meta = restored
-    if shardings is not None:
+    if isinstance(shardings, tuple):
+        mesh, placements = shardings
+        state = place(state, mesh, placements)
+    elif shardings is not None:
         state = _place(state, torch.device(shardings))
     return step, state
 

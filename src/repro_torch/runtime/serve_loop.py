@@ -18,19 +18,22 @@ from repro_torch.core.engine import AdaptivePlan
 from repro_torch.core.estimators import ARSpeedEstimator
 from repro_torch.core.partitioner import even_split, proportional_split
 from repro_torch.models.model import decode_step, prefill
+from repro_torch.runtime.sharding import mesh_context
 
 
 def make_serve_step(cfg: ModelConfig, *, sample: str = "greedy") -> Callable:
     """serve_step(params, state, tokens (B,), [enc_out]) -> (next_tokens (B,),
-    logits (B,V), new state). The state's caches are updated in place."""
+    logits (B,V), new state). The state's caches are updated in place.
+    Placed params (``runtime.sharding.place``) run on their mesh."""
     if sample != "greedy":
         raise ValueError(sample)
 
     @torch.no_grad()
     def serve_step(params, state, tokens: torch.Tensor,
                    enc_out: Optional[torch.Tensor] = None):
-        logits, new_state = decode_step(params, state, tokens, cfg, enc_out=enc_out)
-        return torch.argmax(logits, dim=-1).to(torch.int32), logits, new_state
+        with mesh_context(params):
+            logits, new_state = decode_step(params, state, tokens, cfg, enc_out=enc_out)
+            return torch.argmax(logits, dim=-1).to(torch.int32), logits, new_state
 
     return serve_step
 
@@ -38,14 +41,15 @@ def make_serve_step(cfg: ModelConfig, *, sample: str = "greedy") -> Callable:
 def make_prefill_step(cfg: ModelConfig, max_len: int, *, impl: str = "xla",
                       ) -> Callable:
     """prefill_step(params, tokens (B,S), [enc_feats]) -> (first sampled
-    token (B,), decode state)."""
+    token (B,), decode state). Placed params run on their mesh."""
 
     @torch.no_grad()
     def prefill_step(params, tokens: torch.Tensor,
                      enc_feats: Optional[torch.Tensor] = None):
-        logits, state = prefill(params, tokens, cfg, max_len, enc_feats=enc_feats,
-                                impl=impl)
-        return torch.argmax(logits, dim=-1).to(torch.int32), state
+        with mesh_context(params):
+            logits, state = prefill(params, tokens, cfg, max_len, enc_feats=enc_feats,
+                                    impl=impl)
+            return torch.argmax(logits, dim=-1).to(torch.int32), state
 
     return prefill_step
 

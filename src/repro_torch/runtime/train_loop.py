@@ -70,12 +70,12 @@ def train_state_init(seed: int, cfg: ModelConfig, bundle: ArchBundle, *,
 
 
 def value_and_grad(params: nn.ModuleDict, batch: Batch, cfg: ModelConfig, impl: str,
-                   remat: str) -> Tuple[torch.Tensor, Grads]:
+                   remat: str, constrain=None) -> Tuple[torch.Tensor, Grads]:
     """(loss, grads by parameter name) of ``loss_fn``; grads in the
     parameters' dtypes. A parameter the loss does not reach (the token
     table under embedding prompts) gets zeros, as the reference's grad."""
     named = list(params.named_parameters())
-    loss = loss_fn(params, batch, cfg, impl=impl, remat=remat)
+    loss = loss_fn(params, batch, cfg, impl=impl, remat=remat, constrain=constrain)
     grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
     return loss.detach(), {n: torch.zeros_like(p) if g is None else g
                            for (n, p), g in zip(named, grads)}
@@ -100,11 +100,14 @@ def _apply(state: TrainState, grads: Grads, cfg: ModelConfig, bundle: ArchBundle
 
 
 def make_train_step(cfg: ModelConfig, bundle: ArchBundle, *, impl: str = "xla",
+                    constrain=None,
                     ) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict[str, Any]]]:
+    """constrain: optional activation sharding hook
+    (``runtime.sharding.make_activation_constraint``)."""
     remat = bundle.mesh.remat
 
     def train_step(state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, Any]]:
-        loss, grads = value_and_grad(state.params, batch, cfg, impl, remat)
+        loss, grads = value_and_grad(state.params, batch, cfg, impl, remat, constrain)
         state, metrics = _apply(state, grads, cfg, bundle)
         return state, {"loss": loss, **metrics}
 
