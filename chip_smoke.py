@@ -8,6 +8,10 @@ Run from the repo root on a machine with one CUDA card (an H100):
 Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. device  — card name and count, torch and CUDA versions, power limit;
+   lint    — hemt-lint's self-check of ``src/repro_torch``
+             (``repro_torch.analysis.lint.self_check()``, standard library
+             only): files, findings and waivers; a finding or a waiver
+             fails the run;
 2. build   — nvcc builds every kernel of the paths for sm_90a from the
              sources in the checkout, all at once; the -Xptxas -v report
              is printed, and a spill or "serialized" warning in a wgmma
@@ -111,7 +115,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              both within 1e-5; then ``repro_torch.launch.train``'s
              ``main()``, in this process, on the card for 4 steps and again
              to 6, which must resume from step 4. No kernel may launch;
-10. serve_placed — full-width, full-depth granite-3-8b in bf16 served one
+10. serve_placed — full-width, full-depth granite-3-8b,
+             granite-moe-1b-a400m (the sort dispatch on each rank's own
+             rows, its buffers through the ``moe_buffer`` placement) and
+             mamba2-2.7b (the SSD scan, the conv tail and SSM state of
+             placed caches updated in place) in bf16, each served one
              HeMT round (replicas 1.0,1.0,0.4) from weights placed on a
              (1, 1) ("data", "model") DeviceMesh on cuda:0 under a
              one-process NCCL group: ``runtime.sharding.param_shardings``
@@ -121,10 +129,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              ``make_serve_step`` as users call them. On one rank every
              local shard is the whole tensor, so every token and every
              decode step's logits must equal, bit for bit, the same
-             seed's round on unplaced weights run just before; flash
-             launches once per layer per batch, all on wgmma, counted with
-             the unplaced round's launches excluded; the group is
-             destroyed at the end;
+             seed's round on unplaced weights run just before; each
+             kernel launches once per layer of its kind per batch, all on
+             wgmma, counted with the unplaced round's launches excluded;
+             each model's group is destroyed at its end;
 11. dryrun — ``repro_torch.launch.dryrun``'s full sweep (10 archs x 4
              shapes x the 256- and 512-rank meshes on one-process fake
              groups, meta-device inputs, CPU only), run in worker
@@ -401,6 +409,9 @@ CKPT_GLOBAL_BATCH = 4
 CKPT_LOSS_RTOL = 1e-5
 CLI_STEPS = (4, 6)
 CLI_CKPT_EVERY = 2
+
+# serve_placed: a dense stack, the sort-dispatched MoE and the SSM stack
+PLACED_ARCHS = (ARCH, MOE_ARCH, SSM_ARCH)
 
 # dryrun: the sweep's records, and the cells whose per-device bytes are printed
 DRYRUN_OUT = ROOT / "artifacts" / "dryrun_torch"
@@ -2257,8 +2268,8 @@ def full_tensor(t):
     return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
-def phase_serve_placed(torch, counters, dev):
-    """One HeMT round of full-size granite-3-8b from weights placed on a
+def phase_serve_placed(torch, counters, dev, arch):
+    """One HeMT round of full-size ``arch`` from weights placed on a
     (1, 1) mesh over one NCCL rank, against the same seed's round on the
     unplaced weights: every token and decode logit bit for bit."""
     from collections import Counter
@@ -2270,7 +2281,7 @@ def phase_serve_placed(torch, counters, dev):
     from repro_torch.runtime.serve_loop import HeMTBatcher, make_prefill_step, make_serve_step
 
     t0 = time.perf_counter()
-    bundle = get_bundle(ARCH)
+    bundle = get_bundle(arch)
     cfg, mcfg = bundle.model, bundle.mesh
     max_len = PROMPT_LEN + GEN_LEN
     params = init_params(cfg, SEED, device=dev)
@@ -2345,12 +2356,12 @@ def phase_serve_placed(torch, counters, dev):
     unequal = [f"{name} {what}" for name in plain for what in ("tokens", "logits")
                if not torch.equal(plain[name][what], placed[name][what])]
     if unequal:
-        raise AssertionError(f"placed vs unplaced granite differ in {unequal}")
+        raise AssertionError(f"placed vs unplaced {cfg.name} differ in {unequal}")
     toks = torch.cat([r["tokens"].flatten() for r in placed.values()])
     if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
-        raise AssertionError(f"placed granite: a token out of [0, {cfg.vocab_size})")
+        raise AssertionError(f"placed {cfg.name}: a token out of [0, {cfg.vocab_size})")
     if not all(bool(torch.isfinite(r["logits"]).all()) for r in placed.values()):
-        raise AssertionError("placed granite: non-finite logits")
+        raise AssertionError(f"placed {cfg.name}: non-finite logits")
     timing = {name: {"placed": {k: placed[name][k] for k in ("prefill_ms",
                                                            "decode_ms_per_token")},
                      "plain": {k: plain[name][k] for k in ("prefill_ms",
@@ -2365,6 +2376,20 @@ def phase_serve_placed(torch, counters, dev):
                         "logits": sum(r["logits"].numel() for r in placed.values())},
           "card": timing, "phase_s": time.perf_counter() - t0})
     return launches
+
+
+def phase_lint():
+    """hemt-lint's self-check of the port: no finding and no waiver."""
+    from repro_torch.analysis.lint import self_check
+
+    report = self_check()
+    emit({"phase": "lint", "files_checked": report.files_checked,
+          "findings": [f.format() for f in report.findings],
+          "suppressed": len(report.suppressed),
+          "unused_waivers": len(report.unused_waivers), "counts": report.counts()})
+    if report.exit_code or report.suppressed or report.files_checked == 0:
+        raise AssertionError(f"hemt-lint: {len(report.findings)} finding(s), "
+                             f"{len(report.suppressed)} waived")
 
 
 def start_dryrun():
@@ -2453,6 +2478,7 @@ def main() -> int:
           "capability": list(torch.cuda.get_device_capability(0)),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "nvidia_smi": smi})
+    phase_lint()
 
     t = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:   # one nvcc per source, together
@@ -2539,7 +2565,8 @@ def main() -> int:
     phase_checkpoint(torch, np, counters)
     torch.cuda.empty_cache()
     dryrun = start_dryrun()
-    served(phase_serve_placed(torch, counters, dev))
+    for arch in PLACED_ARCHS:
+        served(phase_serve_placed(torch, counters, dev, arch))
     phase_dryrun(*dryrun)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -10,12 +10,13 @@ reference, so numeric parity goes through ``repro_torch.convert``.
 from __future__ import annotations
 
 import math
-from functools import partial
-from typing import List, Mapping, Optional, Union
+from functools import partial, wraps
+from typing import Callable, List, Mapping, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 Params = Mapping[str, torch.Tensor]
 
@@ -23,6 +24,33 @@ Params = Mapping[str, torch.Tensor]
 def _param(t: torch.Tensor) -> nn.Parameter:
     # serving weights are frozen; a training path turns requires_grad on
     return nn.Parameter(t, requires_grad=False)
+
+
+def shard_local(fn: Callable, split_dims: Tuple[int, ...] = (0,)) -> Callable:
+    """``fn`` run on each rank's own shards when its arguments are placed.
+
+    ``fn`` must treat the slices along ``split_dims`` independently (a
+    row-wise sort, a cumsum along another dim). Its DTensor arguments are
+    brought to the first one's placements with a ``Shard`` of any other dim
+    made ``Replicate()``, and unwrapped; its tensor results (one, or a
+    tuple) are wrapped in those placements again, so autograd runs through
+    ``fn`` as on plain tensors. Plain arguments pass as they are, and
+    without a DTensor argument ``fn`` runs as it is. This keeps ops that
+    DTensor has no sharding strategy for (``searchsorted``; in PyTorch 2.11
+    also ``flip``, in ``cumsum``'s backward) off DTensors."""
+    @wraps(fn)
+    def run(*args):
+        placed = [a for a in args if isinstance(a, DTensor)]
+        if not placed:
+            return fn(*args)
+        mesh = placed[0].device_mesh
+        keep = tuple(p if isinstance(p, Shard) and p.dim in split_dims else Replicate()
+                     for p in placed[0].placements)
+        out = fn(*(a.redistribute(mesh, keep).to_local() if isinstance(a, DTensor) else a
+                   for a in args))
+        wrap = partial(DTensor.from_local, device_mesh=mesh, placements=keep, run_check=False)
+        return wrap(out) if isinstance(out, torch.Tensor) else tuple(wrap(t) for t in out)
+    return run
 
 
 class ParamTree(nn.Module):
@@ -63,6 +91,22 @@ def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * params["scale"]
+    return out.to(dt)
+
+
+def layernorm_init(d: int, *, device=None) -> nn.ParameterDict:
+    return nn.ParameterDict({
+        "scale": _param(torch.ones(d, dtype=torch.float32, device=device)),
+        "bias": _param(torch.zeros(d, dtype=torch.float32, device=device))})
+
+
+def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Computed in fp32 and cast back to x's dtype."""
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
     return out.to(dt)
 
 

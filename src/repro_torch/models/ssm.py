@@ -14,6 +14,7 @@ across heads within a group (n_groups, like GQA).
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -23,7 +24,7 @@ from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.attention import IMPLS
 from repro_torch.models.layers import (
-    Params, ParamTree, _dense_init, _param, rmsnorm, rmsnorm_init,
+    Params, ParamTree, _dense_init, _param, rmsnorm, rmsnorm_init, shard_local,
 )
 
 Cache = Dict[str, torch.Tensor]
@@ -64,11 +65,21 @@ def _split_proj(proj: torch.Tensor, d_model: int, cfg: SSMConfig):
     return torch.split(proj, [d_in, d_in + 2 * ng * ds, dims["n_heads"]], dim=-1)
 
 
+def _pad_seq(t: torch.Tensor, before: int, after: int = 0) -> torch.Tensor:
+    """``t`` with ``before`` and ``after`` zero rows on dim 1 (the sequence),
+    in a new tensor of t's kind (a DTensor stays one). By ``cat``, not
+    ``F.pad``: PyTorch 2.11's DTensor pad keeps the placement of one mesh
+    dim only, which the next view refuses."""
+    def zeros(n):
+        return [t.new_zeros((t.shape[0], n) + tuple(t.shape[2:]))] if n else []
+    return torch.cat(zeros(before) + [t] + zeros(after), dim=1)
+
+
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv over sequence in the model's dtype, one window
     tap at a time from 0, as the reference's ``sum``. xbc: (B, S, C); w: (W, C)."""
     width, s = w.shape[0], xbc.shape[1]
-    pad = F.pad(xbc, (0, 0, width - 1, 0))
+    pad = _pad_seq(xbc, width - 1)
     out = sum(pad[:, i: i + s, :] * w[i] for i in range(width))
     return F.silu(out + b.to(out.dtype))
 
@@ -145,10 +156,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     pad = (-s0) % chunk
     if pad:
         # zero-dt padding is inert: decay exp(0*a)=1, input dt*x=0
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        B = F.pad(B, (0, 0, 0, 0, 0, pad))
-        C = F.pad(C, (0, 0, 0, 0, 0, pad))
+        x, dt, B, C = (_pad_seq(t, 0, pad) for t in (x, dt, B, C))
         y, fin = ssd_chunked(x, dt, a_log, B, C, chunk, init_state, constrain)
         return y[:, :s0], fin
     if x.shape[1] >= SSD_SCAN_THRESHOLD:
@@ -167,7 +175,9 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     Bc = torch.repeat_interleave(B.reshape(bsz, nc, chunk, g, n), rep, dim=3).float()
     Cc = torch.repeat_interleave(C.reshape(bsz, nc, chunk, g, n), rep, dim=3).float()
 
-    cum = torch.cumsum(dc, dim=2)                         # (b, nc, q, H)
+    # on each rank's shards: cumsum's backward flips, which PyTorch 2.11's
+    # DTensor has no strategy for
+    cum = shard_local(partial(torch.cumsum, dim=2), (0, 1, 3))(dc)   # (b, nc, q, H)
 
     # ---- intra-chunk (dual / attention-like) ------------------------------
     # L[i,j] = exp(cum_i - cum_j) for i >= j
@@ -245,14 +255,14 @@ def ssm_prefill(params: Params, x: torch.Tensor, d_model: int, cfg: SSMConfig,
     """Full-sequence Mamba2 that also emits the decode cache (conv tail =
     last conv_width-1 *raw* xbc rows, zero-padded on the left when S is
     shorter, and the final SSD state). The tail is a buffer of its own, so
-    the cache holds nothing of the prompt's activations."""
+    the cache holds nothing of the prompt's activations. It is built from
+    ``xbc_raw`` by ``cat``, which allocates, so it is a tensor of the same
+    kind: a DTensor on placed weights."""
     out, final, xbc_raw = _mix(params, x, d_model, cfg, impl)
-    bsz, s, conv_dim = xbc_raw.shape
+    s = xbc_raw.shape[1]
     w1 = cfg.conv_width - 1
     take = min(w1, s)
-    tail = torch.zeros((bsz, w1, conv_dim), dtype=x.dtype, device=x.device)
-    tail[:, w1 - take:] = xbc_raw[:, s - take:]
-    return out, {"conv": tail, "state": final}
+    return out, {"conv": _pad_seq(xbc_raw[:, s - take:], w1 - take), "state": final}
 
 
 # --------------------------------------------------------------------------

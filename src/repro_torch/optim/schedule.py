@@ -21,3 +21,8 @@ def warmup_cosine(step: Step, *, peak_lr: float, warmup_steps: int,
     prog = torch.clamp((s - warmup_steps) / max(total_steps - warmup_steps, 1), 0.0, 1.0)
     cos = floor + (1.0 - floor) * 0.5 * (1.0 + torch.cos(math.pi * prog))
     return peak_lr * torch.where(s < warmup_steps, warm, cos)
+
+
+def constant(step: Step, *, lr: float) -> torch.Tensor:
+    """``lr`` at every step (a 0-d float32 tensor on the CPU)."""
+    return torch.full((), lr, dtype=torch.float32)

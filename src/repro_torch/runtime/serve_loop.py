@@ -59,6 +59,13 @@ def make_prefill_step(cfg: ModelConfig, max_len: int, *, impl: str = "xla",
 # --------------------------------------------------------------------------
 
 @dataclass
+class ReplicaState:
+    name: str
+    active: int = 0                  # requests currently decoding
+    tokens_done: int = 0
+
+
+@dataclass
 class DispatchRecord:
     round: int
     shares: Dict[str, int]

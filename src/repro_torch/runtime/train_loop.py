@@ -39,6 +39,7 @@ from repro_torch.optim.compression import (
     CompressionState, compress_decompress, compression_init,
 )
 from repro_torch.optim.schedule import warmup_cosine
+from repro_torch.runtime.sharding import mesh_context
 
 Grads = Dict[str, torch.Tensor]
 Batch = Dict[str, torch.Tensor]
@@ -103,12 +104,14 @@ def make_train_step(cfg: ModelConfig, bundle: ArchBundle, *, impl: str = "xla",
                     constrain=None,
                     ) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict[str, Any]]]:
     """constrain: optional activation sharding hook
-    (``runtime.sharding.make_activation_constraint``)."""
+    (``runtime.sharding.make_activation_constraint``). A state placed by
+    ``runtime.sharding.place`` steps on its mesh."""
     remat = bundle.mesh.remat
 
     def train_step(state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, Any]]:
-        loss, grads = value_and_grad(state.params, batch, cfg, impl, remat, constrain)
-        state, metrics = _apply(state, grads, cfg, bundle)
+        with mesh_context(state.params):
+            loss, grads = value_and_grad(state.params, batch, cfg, impl, remat, constrain)
+            state, metrics = _apply(state, grads, cfg, bundle)
         return state, {"loss": loss, **metrics}
 
     return train_step

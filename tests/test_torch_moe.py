@@ -307,11 +307,68 @@ def test_train_step_matches_reference(J):
         np.testing.assert_allclose(got[path], want, atol=1e-4, err_msg=J.jax.tree_util.keystr(path))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["no-drops", "skewed-hard", "top3-drops"])
+def test_combine_is_the_references_scatter_add(J, case, dtype):
+    """The combine equals, bit for bit, the reference's per-row
+    ``out.at[tok_s].add(g)`` over the same sorted pairs, which applies its
+    updates in order and rounds each add to bf16 (the CPU's ``index_add_``
+    accumulates bf16 in fp32 instead), without and with drops and with
+    skewed capacities."""
+    cfg = MoEConfig(**CASES[case])
+    gen = torch.Generator().manual_seed(3)
+    b, s = 3, 40
+    tdt = getattr(torch, dtype)
+    x = torch.randn(b, s, D, generator=gen).to(tdt)
+    gates = torch.softmax(torch.randn(b, s, cfg.n_experts, generator=gen), dim=-1)
+    top_w, top_i, _ = tmoe._top_k(gates, cfg.top_k)
+    caps_np = tmoe.expert_capacities(cfg, s)
+    caps = torch.as_tensor(caps_np, dtype=torch.int64)
+    buf, slot, keep, tok_s, w_s = tmoe._dispatch(x, top_w, top_i, caps, int(caps_np.max()))
+    assert bool(keep.all()) == (case == "no-drops")
+    out_buf = torch.randn(buf.shape, generator=gen).to(tdt)
+    got = tmoe._combine(out_buf, slot, keep, tok_s, w_s, s)
+    n = slot.shape[1]
+    flat = torch.cat([out_buf.reshape(b, -1, D), out_buf.new_zeros((b, 1, D))], 1)
+    g = torch.gather(flat, 1, slot[..., None].expand(b, n, D)) * \
+        (w_s * keep)[..., None].to(tdt)
+    jnp = J.jnp
+    jdt = getattr(jnp, dtype)
+    gj = jnp.asarray(g.float().numpy()).astype(jdt)
+    want = J.jax.vmap(lambda o, t, u: o.at[t].add(u))(
+        jnp.zeros((b, s, D), jdt), jnp.asarray(tok_s.numpy()), gj)
+    assert got.dtype == tdt
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.gpu
+def test_moe_combine_is_the_same_on_every_run_on_card():
+    """bf16 at granite-moe-1b-a400m's width, 32 experts top-8: two calls of
+    ``moe_apply`` on the card give the same bits, and the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = MoEConfig(n_experts=32, top_k=8, capacity_factor=1.25)
+    gen = torch.Generator().manual_seed(4)
+    p = tmoe.moe_init(gen, 1024, 512, cfg, True, dtype=torch.bfloat16)
+    x = (torch.randn(4, 256, 1024, generator=gen) * 0.5).to(torch.bfloat16)
+    pc, xc = {k: v.cuda() for k, v in p.items()}, x.cuda()
+    first, second = tmoe.moe_apply(pc, xc, cfg)[0], tmoe.moe_apply(pc, xc, cfg)[0]
+    assert torch.equal(first, second)
+    buf, slot, keep, tok_s, w_s = (t.cpu() for t in tmoe._dispatch(
+        xc, *tmoe.route(pc, xc, cfg)[:2], torch.as_tensor(
+            tmoe.expert_capacities(cfg, 256), device="cuda"),
+        int(tmoe.expert_capacities(cfg, 256).max())))
+    out_buf = torch.randn(buf.shape, generator=gen).to(torch.bfloat16)
+    assert torch.equal(tmoe._combine(out_buf.cuda(), slot.cuda(), keep.cuda(), tok_s.cuda(),
+                                     w_s.cuda(), 256).cpu(),
+                       tmoe._combine(out_buf, slot, keep, tok_s, w_s, 256))
+
+
 @pytest.mark.gpu
 def test_moe_dispatch_on_card():
-    """The sort dispatch on the card (searchsorted, scatter, gather and
-    index_add_ on CUDA tensors) against the same call on the CPU and the
-    dense oracle, with drops and with skewed capacities, in fp32."""
+    """The sort dispatch on the card (searchsorted, scatter, gather and the
+    ordered combine on CUDA tensors) against the same call on the CPU and
+    the dense oracle, with drops and with skewed capacities, in fp32."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     gen = torch.Generator().manual_seed(0)

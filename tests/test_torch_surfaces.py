@@ -161,3 +161,147 @@ def test_core_exports_the_references_names():
     np.testing.assert_array_equal(tcore.bucket_of_torch(torch.from_numpy(h),
                                                           torch.from_numpy(caps)).numpy(),
                                   np.asarray(jcore.bucket_of_jnp(jnp.asarray(h), caps)))
+
+
+# --------------------------------------------------------------------------
+# the reference's last top-level names, and completeness
+# --------------------------------------------------------------------------
+
+def test_layernorm_matches_the_reference():
+    """fp32 and bf16 inputs, the reference's init and random scale/bias."""
+    from repro.models import layers as jl
+    from repro_torch.models import layers as tl
+
+    rng = np.random.default_rng(11)
+    d = 48
+    jp, tp = jl.layernorm_init(d), tl.layernorm_init(d, device="cpu")
+    assert sorted(tp.keys()) == sorted(jp) and all(not p.requires_grad for p in tp.values())
+    for k in jp:
+        np.testing.assert_array_equal(tp[k].numpy(), np.asarray(jp[k]))
+    params = {k: rng.standard_normal(d).astype(np.float32) for k in ("scale", "bias")}
+    x = (rng.standard_normal((3, 5, d)) * 2.0 + 0.5).astype(np.float32)
+    got = tl.layernorm({k: torch.from_numpy(v) for k, v in params.items()}, torch.from_numpy(x))
+    want = jl.layernorm({k: jnp.asarray(v) for k, v in params.items()}, jnp.asarray(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+    gb = tl.layernorm(tp, torch.from_numpy(x).to(torch.bfloat16), eps=1e-6)
+    wb = jl.layernorm(jp, jnp.asarray(x, jnp.bfloat16), eps=1e-6)
+    assert gb.dtype == torch.bfloat16
+    np.testing.assert_allclose(gb.float().numpy(), np.asarray(wb, np.float32), atol=2e-2)
+
+
+def test_constant_schedule_matches_the_reference():
+    from repro.optim import schedule as js
+    from repro_torch.optim import schedule as ts
+
+    for step in (0, 7, torch.tensor(3)):
+        got = ts.constant(step, lr=3e-4)
+        want = js.constant(jnp.asarray(int(step)), lr=3e-4)
+        assert got.dtype == torch.float32 and got.shape == ()
+        assert float(got) == float(want)
+
+
+def test_replica_state_matches_the_reference():
+    from repro.runtime.serve_loop import ReplicaState as JReplicaState
+    from repro_torch.runtime.serve_loop import ReplicaState
+
+    def fields(cls):
+        return [(f.name, f.default) for f in dataclasses.fields(cls)]
+
+    assert fields(ReplicaState) == fields(JReplicaState)
+    r = ReplicaState("rep0")
+    r.active += 2
+    assert dataclasses.astuple(r) == dataclasses.astuple(JReplicaState("rep0", active=2))
+
+
+def _top_level_names(path):
+    """Top-level defs, classes and assignments to names of a module."""
+    import ast
+
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    out = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            for target in (node.targets if isinstance(node, ast.Assign) else [node.target]):
+                elts = target.elts if isinstance(target, (ast.Tuple, ast.List)) else [target]
+                out.update(e.id for e in elts if isinstance(e, ast.Name))
+    return out
+
+
+# reference modules whose port has another name
+RENAMED_MODULES = {"launch/hlo_cost.py": "launch/op_cost.py"}
+# the op_cost module counts FLOPs on meta tensors where hlo_cost parses
+# XLA's HLO text: none of hlo_cost's names has a meaning there
+NO_NAMEWISE_COUNTERPART = {"launch/hlo_cost.py"}
+PYTREE = "a JAX pytree type alias; the port's trees are modules and dicts"
+# (reference module, name) -> the port's counterpart in the same module
+# ("module:name" where it lives elsewhere), or why there is none
+NAME_EXCEPTIONS = {
+    **{(m, "Pytree"): PYTREE for m in ("models/model.py", "models/transformer.py",
+                                       "optim/adamw.py", "optim/compression.py",
+                                       "runtime/serve_loop.py", "runtime/train_loop.py")},
+    ("kernels/flash_attention.py", "_attn_kernel"): "the Pallas body; csrc/flash_attention.cu",
+    ("kernels/ssd_scan.py", "_ssd_kernel"): "the Pallas body; csrc/ssd_scan.cu",
+    ("kernels/skewed_bucket.py", "_bucket_kernel"): "the Pallas body; csrc/skewed_bucket.cu",
+    ("kernels/flash_attention.py", "_round_up"): "pads to Pallas blocks; the CUDA kernel "
+                                                 "takes ragged lengths",
+    ("kernels/skewed_bucket.py", "_round_up"): "pads to Pallas blocks; the CUDA kernel "
+                                               "takes ragged lengths",
+    ("kernels/skewed_bucket.py", "_is_static"): "tells traced jnp capacities from static "
+                                                "ones; torch runs eagerly",
+    ("kernels/ops.py", "_interpret_default"): "Pallas interpret mode; a wrapper takes the "
+                                              "plain version on CPU tensors",
+    ("kernels/flash_attention.py", "NEG_INF"): "kernels/ref.py:NEG_INF",
+    ("core/batched.py", "pull_scan_jax"): "pull_scan_torch",
+    ("core/skewed_hash.py", "bucket_of_jnp"): "bucket_of_torch",
+    ("launch/specs.py", "_sds"): "jax.ShapeDtypeStruct; the port's specs are meta tensors",
+    ("launch/dryrun.py", "_mem_dict"): "XLA's memory_analysis; the port sums placed bytes",
+    ("checkpoint/checkpointer.py", "_flatten"): "jax tree paths; the port walks its "
+                                                "trees in _entries",
+    ("checkpoint/checkpointer.py", "_path_str"): "jax tree path entries",
+    ("runtime/train_loop.py", "_loss_with_aux"): "jax.value_and_grad's target; "
+                                                 "value_and_grad calls loss_fn",
+    ("models/transformer.py", "_layer_axes"): "layer_axes",
+    ("analysis/rules/hl005_tracer_safety.py", "_decorator_static_argnames"):
+        "jit's static_argnames; torch's tracing entries take none",
+}
+
+
+def _port_has(module, counterpart):
+    """``counterpart`` ("name", or "module:name") is a top-level name of the port."""
+    path, _, name = counterpart.rpartition(":")
+    return name in _top_level_names(os.path.join(ROOT, "repro_torch", path or module))
+
+
+def test_every_reference_name_has_a_counterpart_in_the_port():
+    """An AST walk of both packages: each top-level name of a module of
+    ``src/repro/`` is in the port's module of the same path, or in
+    ``NAME_EXCEPTIONS`` with its counterpart or its reason. A name added
+    to the reference without a port fails here, as does an exception the
+    port no longer needs."""
+    ref_root = os.path.join(ROOT, "repro")
+    missing, stale, used = [], [], set()
+    for dirpath, _, files in os.walk(ref_root):
+        for fname in sorted(files):
+            if not fname.endswith(".py"):
+                continue
+            module = os.path.relpath(os.path.join(dirpath, fname), ref_root).replace(os.sep, "/")
+            port_path = os.path.join(ROOT, "repro_torch", RENAMED_MODULES.get(module, module))
+            assert os.path.exists(port_path), f"no counterpart of {module}"
+            if module in NO_NAMEWISE_COUNTERPART:
+                continue
+            have = _top_level_names(port_path)
+            for name in sorted(_top_level_names(os.path.join(dirpath, fname)) - have):
+                key = (module, name)
+                if key not in NAME_EXCEPTIONS:
+                    missing.append(f"{module}:{name}")
+                    continue
+                used.add(key)
+                counterpart = NAME_EXCEPTIONS[key]
+                if " " not in counterpart and not _port_has(module, counterpart):
+                    stale.append(f"{module}:{name} -> {counterpart}")
+    assert missing == [], f"reference names without a port: {missing}"
+    assert stale == [], f"counterparts not found: {stale}"
+    assert sorted(set(NAME_EXCEPTIONS) - used) == [], "exceptions the port no longer needs"
