@@ -12,7 +12,9 @@ layer, a KV ring buffer or an SSM ``{"conv", "state"}`` pair.
 ``init_params`` builds frozen (serving) weights; the training path turns
 ``requires_grad`` on (``runtime.train_loop``). On ``device="meta"`` it
 builds shapes and dtypes only (the dry-run's stand-ins for 100B+
-configs); ``params_axes`` names each parameter's logical axes.
+configs); ``params_axes`` names each parameter's logical axes. The
+embedding and the head (final norm, unembedding, pad mask) are
+``repro_torch.telemetry`` spans (``embed``, ``head``).
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from repro_torch.models import frontends, transformer
 from repro_torch.models.layers import (
     embed, embedding_init, rmsnorm, rmsnorm_init, sinusoidal_positions, unembed,
 )
+from repro_torch.telemetry import span
 
 State = Dict[str, Any]
 
@@ -146,13 +149,14 @@ def _inputs(params, tokens: Optional[torch.Tensor], cfg: ModelConfig,
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """The decoder's input (B,S,D), its positions and the encoder's output
     (None without an encoder)."""
-    if input_embeds is not None:
-        x = frontends.adapter_apply(params["adapter"], input_embeds)
-    else:
-        x = embed(params["embed"], tokens)
-    b, s = x.shape[:2]
-    if _decoder_sinusoids(cfg):
-        x = x + sinusoidal_positions(s, cfg.d_model, device=x.device)[None].to(x.dtype)
+    with span("embed"):
+        if input_embeds is not None:
+            x = frontends.adapter_apply(params["adapter"], input_embeds)
+        else:
+            x = embed(params["embed"], tokens)
+        b, s = x.shape[:2]
+        if _decoder_sinusoids(cfg):
+            x = x + sinusoidal_positions(s, cfg.d_model, device=x.device)[None].to(x.dtype)
     enc_out = None
     if cfg.encoder_layers > 0:
         if enc_feats is None:
@@ -307,8 +311,9 @@ def prefill(params, tokens: Optional[torch.Tensor], cfg: ModelConfig, max_len: i
     s = x.shape[1]
     x, cache, _ = transformer.stack_prefill(params["stack"], x, cfg, pos, max_len,
                                             enc_out=enc_out, impl=impl)
-    x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
-    logits = mask_pad_logits(unembed(_head(params), x)[:, 0, :], cfg)
+    with span("head"):
+        x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
+        logits = mask_pad_logits(unembed(_head(params), x)[:, 0, :], cfg)
     return logits, {"cache": cache, "length": s}
 
 
@@ -327,15 +332,17 @@ def decode_step(params, state: State, token: torch.Tensor, cfg: ModelConfig, *,
     """token: (B,) integer; enc_out: the encoder's output (B, S_enc, D) for
     enc-dec archs. Returns (logits (B,V), new state). The caches of
     ``state`` are updated in place; ``length`` is a Python int."""
-    x = embed(params["embed"], token[:, None])
-    if _decoder_sinusoids(cfg):
-        # whisper: sinusoidal position for the current step, computed directly
-        row = _sin_row(state["length"], cfg.d_model, x.device)
-        x = x + row.to(x.dtype)[None, None]
+    with span("embed"):
+        x = embed(params["embed"], token[:, None])
+        if _decoder_sinusoids(cfg):
+            # whisper: sinusoidal position for the current step, computed directly
+            row = _sin_row(state["length"], cfg.d_model, x.device)
+            x = x + row.to(x.dtype)[None, None]
     x, cache = transformer.stack_decode_step(params["stack"], state["cache"], x,
                                              state["length"], cfg, enc_out=enc_out)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = mask_pad_logits(unembed(_head(params), x)[:, 0, :], cfg)
+    with span("head"):
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        logits = mask_pad_logits(unembed(_head(params), x)[:, 0, :], cfg)
     return logits, {"cache": cache, "length": state["length"] + 1}
 
 

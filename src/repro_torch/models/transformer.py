@@ -14,7 +14,10 @@ stack is an ``nn.ModuleList`` with one entry per layer (layer ``i`` plays
 the reference's ``sub{i % period}`` of group ``i // period``;
 ``repro_torch.convert`` moves the leaves), and the scan is a Python loop.
 Every init function has a mirror ``*_axes`` function naming each leaf's
-logical axes (``runtime.sharding`` maps them onto a mesh).
+logical axes (``runtime.sharding`` maps them onto a mesh). In the prefill
+and decode passes each layer's norms, mixer (``attn`` or ``ssm``), cross
+block and FFN are ``repro_torch.telemetry`` spans carrying the layer
+index; the residual adds are the enclosing step's self time.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import Params, mlp_apply, mlp_init, rmsnorm, rmsnorm_init
+from repro_torch.telemetry import span
 
 Cache = List[Dict[str, torch.Tensor]]
 Axes = Tuple[Optional[str], ...]
@@ -292,19 +296,26 @@ def stack_prefill(params: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
     cache: Cache = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(params):
-        hin = rmsnorm(p["norm1"], x, cfg.norm_eps)
-        if cfg.layer_kind(i) == "attn":
-            out, c = attn.attention_prefill(p["mixer"], hin, cfg.attention, positions,
-                                            _cache_len(cfg, i, max_len),
-                                            window_override=_window(cfg, i), impl=impl)
-        else:
-            out, c = ssm_mod.ssm_prefill(p["mixer"], hin, cfg.d_model, cfg.ssm,
-                                         impl=impl)
+        kind = cfg.layer_kind(i)
+        with span("norm", layer=i):
+            hin = rmsnorm(p["norm1"], x, cfg.norm_eps)
+        with span(kind, layer=i):
+            if kind == "attn":
+                out, c = attn.attention_prefill(p["mixer"], hin, cfg.attention, positions,
+                                                _cache_len(cfg, i, max_len),
+                                                window_override=_window(cfg, i), impl=impl)
+            else:
+                out, c = ssm_mod.ssm_prefill(p["mixer"], hin, cfg.d_model, cfg.ssm,
+                                             impl=impl)
         x = x + out
         if "cross" in p:
-            x = _cross_apply(p, x, cfg, enc_out)
+            with span("cross", layer=i):
+                x = _cross_apply(p, x, cfg, enc_out)
         if "ffn" in p:
-            out, aux_i = _ffn_apply(p, rmsnorm(p["norm2"], x, cfg.norm_eps), cfg, i)
+            with span("norm", layer=i):
+                hin = rmsnorm(p["norm2"], x, cfg.norm_eps)
+            with span("ffn", layer=i):
+                out, aux_i = _ffn_apply(p, hin, cfg, i)
             x = x + out
             if aux_i is not None:
                 aux = aux + aux_i
@@ -320,16 +331,24 @@ def stack_decode_step(params: nn.ModuleList, cache: Cache, x: torch.Tensor,
     cache is updated in place (see attention_decode_step, ssm_decode_step);
     cross-attention recomputes its K/V from ``enc_out`` at every step."""
     for i, (p, c) in enumerate(zip(params, cache)):
-        hin = rmsnorm(p["norm1"], x, cfg.norm_eps)
-        if cfg.layer_kind(i) == "attn":
-            out, _ = attn.attention_decode_step(p["mixer"], hin, c, cache_len,
-                                                cfg.attention,
-                                                window_override=_window(cfg, i))
-        else:
-            out, _ = ssm_mod.ssm_decode_step(p["mixer"], hin, c, cfg.d_model, cfg.ssm)
+        kind = cfg.layer_kind(i)
+        with span("norm", layer=i):
+            hin = rmsnorm(p["norm1"], x, cfg.norm_eps)
+        with span(kind, layer=i):
+            if kind == "attn":
+                out, _ = attn.attention_decode_step(p["mixer"], hin, c, cache_len,
+                                                    cfg.attention,
+                                                    window_override=_window(cfg, i))
+            else:
+                out, _ = ssm_mod.ssm_decode_step(p["mixer"], hin, c, cfg.d_model, cfg.ssm)
         x = x + out
         if "cross" in p:
-            x = _cross_apply(p, x, cfg, enc_out)
+            with span("cross", layer=i):
+                x = _cross_apply(p, x, cfg, enc_out)
         if "ffn" in p:
-            x = x + _ffn_apply(p, rmsnorm(p["norm2"], x, cfg.norm_eps), cfg, i)[0]
+            with span("norm", layer=i):
+                hin = rmsnorm(p["norm2"], x, cfg.norm_eps)
+            with span("ffn", layer=i):
+                out = _ffn_apply(p, hin, cfg, i)[0]
+            x = x + out
     return x, cache

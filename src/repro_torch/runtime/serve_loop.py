@@ -13,6 +13,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import AdaptivePlan
 from repro_torch.core.estimators import ARSpeedEstimator
@@ -24,14 +25,17 @@ from repro_torch.runtime.sharding import mesh_context
 def make_serve_step(cfg: ModelConfig, *, sample: str = "greedy") -> Callable:
     """serve_step(params, state, tokens (B,), [enc_out]) -> (next_tokens (B,),
     logits (B,V), new state). The state's caches are updated in place.
-    Placed params (``runtime.sharding.place``) run on their mesh."""
+    Placed params (``runtime.sharding.place``) run on their mesh. Each call
+    is a ``decode_step`` span carrying the batch id its prefill bound."""
     if sample != "greedy":
         raise ValueError(sample)
 
     @torch.no_grad()
     def serve_step(params, state, tokens: torch.Tensor,
                    enc_out: Optional[torch.Tensor] = None):
-        with mesh_context(params):
+        batch, step = telemetry.batch_step(state["cache"])
+        with telemetry.span("decode_step", batch=batch, rows=tokens.shape[0], step=step), \
+                mesh_context(params):
             logits, new_state = decode_step(params, state, tokens, cfg, enc_out=enc_out)
             return torch.argmax(logits, dim=-1).to(torch.int32), logits, new_state
 
@@ -41,14 +45,18 @@ def make_serve_step(cfg: ModelConfig, *, sample: str = "greedy") -> Callable:
 def make_prefill_step(cfg: ModelConfig, max_len: int, *, impl: str = "xla",
                       ) -> Callable:
     """prefill_step(params, tokens (B,S), [enc_feats]) -> (first sampled
-    token (B,), decode state). Placed params run on their mesh."""
+    token (B,), decode state). Placed params run on their mesh. Each call
+    is a ``prefill`` span that opens a batch id and binds it to the state."""
 
     @torch.no_grad()
     def prefill_step(params, tokens: torch.Tensor,
                      enc_feats: Optional[torch.Tensor] = None):
-        with mesh_context(params):
+        batch = telemetry.new_batch()
+        with telemetry.span("prefill", batch=batch, rows=tokens.shape[0],
+                            prompt_len=tokens.shape[1]), mesh_context(params):
             logits, state = prefill(params, tokens, cfg, max_len, enc_feats=enc_feats,
                                     impl=impl)
+            telemetry.bind(state["cache"], batch)
             return torch.argmax(logits, dim=-1).to(torch.int32), state
 
     return prefill_step
@@ -89,10 +97,23 @@ class HeMTBatcher:
         self._round = 0
 
     def observe(self, replica: str, tokens: int, seconds: float) -> None:
-        if tokens > 0 and seconds > 0:
-            self.estimator.observe(replica, tokens, seconds)
+        """An ``observe`` span; ``predicted_s`` is what the estimate held
+        just before this observation foretold (absent while the replica is
+        unknown)."""
+        speed = self.estimator.speed(replica)
+        pred = {} if not speed else {"predicted_s": tokens / speed}
+        with telemetry.span("observe", replica=replica, tokens=tokens, observed_s=seconds,
+                            **pred):
+            if tokens > 0 and seconds > 0:
+                self.estimator.observe(replica, tokens, seconds)
 
     def dispatch(self, n_requests: int) -> Dict[str, int]:
+        with telemetry.span("dispatch", round=self._round) as sp:
+            out = self._dispatch(n_requests)
+            sp.set(shares=dict(out))
+            return out
+
+    def _dispatch(self, n_requests: int) -> Dict[str, int]:
         n = len(self.replicas)
         if self.mode == "even" or not self.estimator.known():
             shares = even_split(n_requests, n)
