@@ -204,6 +204,63 @@ def test_simulate_stage_with_faults_and_mitigation_matches_reference():
 
 
 # --------------------------------------------------------------------------
+# striped symmetric co-readers: the route follows the stripe the queue shows
+# --------------------------------------------------------------------------
+
+def _stage_io_sym_striped(m, seed):
+    """Co-readers of one ``io_mb`` on a d-wide stripe (task k reads
+    ``dns[k % d]``) over n = d or 2d nodes, 1 to 40 tasks, CPU spans well
+    inside a lone reader's drain: (nodes, tasks, uplink_bw, d)."""
+    rng = np.random.default_rng(seed)
+    d = int(rng.integers(1, 5))
+    n = d * int(rng.integers(1, 3))
+    speeds = rng.uniform(0.2, 3.0, n)
+    io_mb = float(rng.uniform(10.0, 50.0))
+    bw = float(rng.uniform(5.0, 50.0))
+    n_tasks = int(rng.integers(1, 41))
+    d_min = io_mb / bw                       # lone-reader drain
+    nodes = [m.sim.SimNode.constant(f"n{i}", float(s),
+                                    float(rng.uniform(0.0, 0.1 * d_min)))
+             for i, s in enumerate(speeds)]
+    dns = [int(x) for x in rng.permutation(8)[:d]]
+    works = rng.uniform(0.0, 0.5 * d_min * speeds.min(), n_tasks)
+    return nodes, _tasks(m, works.tolist(), io_mb,
+                         [dns[k % d] for k in range(n_tasks)]), bw, d
+
+
+def _assert_schedules_close(want, got, tol=1e-9):
+    assert got.completion == pytest.approx(want.completion, rel=tol, abs=tol)
+    assert got.idle_time == pytest.approx(want.idle_time, rel=tol, abs=tol)
+    assert got.node_finish == pytest.approx(want.node_finish, rel=tol, abs=tol)
+    a = {r.task_id: (r.node, r.start, r.end) for r in want.records}
+    b = {r.task_id: (r.node, r.start, r.end) for r in got.records}
+    assert a.keys() == b.keys()
+    for k, (node, start, end) in a.items():
+        assert b[k][0] == node, f"task {k}"
+        assert b[k][1:] == pytest.approx((start, end), rel=tol, abs=tol)
+
+
+# seeds 10 and 29 draw a queue shorter than its stripe whose width does not
+# divide n (event path), 17 one whose width does (closed form)
+@pytest.mark.parametrize("seed", range(32))
+def test_io_sym_striped_route_follows_the_stripe_the_queue_shows(seed):
+    """engine._stripe_width sees the stripe only through the queue: a queue
+    shorter than its stripe shows one as wide as itself, which takes the
+    closed form only if it divides the node count.  Both packages route
+    alike, the port's route reproduces its event calendar, and its stage
+    equals the reference's."""
+    (jn, jt, bw, d), (tn, tt, _, _) = (_stage_io_sym_striped(REF, seed),
+                                      _stage_io_sym_striped(PORT, seed))
+    seen = min(len(tt), d)
+    route = "closed-pull-io-sym" if len(tn) % seen == 0 else "event"
+    assert j_engine.plan_path(jn, [jt], True, bw) == route
+    assert t_engine.plan_path(tn, [tt], True, bw) == route
+    got = t_engine.simulate_stage(tn, [tt], True, bw)
+    _assert_schedules_close(t_engine.run_stage_events(tn, [tt], True, bw), got)
+    assert _result(got) == _result(j_engine.simulate_stage(jn, [jt], True, bw))
+
+
+# --------------------------------------------------------------------------
 # the three guards rewritten without a waiver
 # --------------------------------------------------------------------------
 
