@@ -10,7 +10,7 @@ dense path with no mask and no rope, as the reference runs it.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -244,18 +244,22 @@ def init_kv_cache(batch: int, max_len: int, cfg: AttentionConfig, *,
 
 
 def attention_decode_step(params: Params, x: torch.Tensor,
-                          cache: Dict[str, torch.Tensor], cache_len: int,
+                          cache: Dict[str, torch.Tensor],
+                          cache_len: Union[int, torch.Tensor],
                           cfg: AttentionConfig, *,
                           window_override: Optional[int] = None,
                           kv_source: Optional[torch.Tensor] = None,
                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token decode. x: (B, 1, D); cache_len: current length (the new
-    token's position).
+    token's position), a Python int or a 0-d int64 tensor on x's device.
 
     The KV cache is a ring buffer of size cache['k'].shape[1]; a window
     layer's cache is allocated at window size, so wrap-around evicts. Unlike
     the reference, which returns an updated copy, the port writes the new
     token's K/V into the given cache in place and returns that cache.
+    Rope's angles, the ring slot, the write and the ring's mask all derive
+    from the position on the device, so the step reads nothing back to the
+    host and a CUDA graph can replay it (``runtime.serve_loop``).
     With ``kv_source`` (cross-attention) K and V are computed from it at
     every step and the cache is returned untouched.
     """
@@ -265,29 +269,31 @@ def attention_decode_step(params: Params, x: torch.Tensor,
     if kv_source is not None:
         return _cross_attention(params, x, kv_source, cfg), cache
     dh, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    cache_len = int(cache_len)
+    pos = torch.as_tensor(cache_len, dtype=torch.int64, device=x.device)
     cap = cache["k"].shape[1]
 
-    pos = torch.full((b, 1), cache_len, dtype=torch.int64, device=x.device)
+    positions = pos.expand(b, 1)
     q = (x @ params["wq"]).reshape(b, 1, hq, dh)
-    q = apply_rope(q, pos, cfg.rope_theta, cfg.rope_style)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_style)
     k_new = (x @ params["wk"]).reshape(b, 1, hkv, dh)
-    k_new = apply_rope(k_new, pos, cfg.rope_theta, cfg.rope_style)
+    k_new = apply_rope(k_new, positions, cfg.rope_theta, cfg.rope_style)
     v_new = (x @ params["wv"]).reshape(b, 1, hkv, dh)
 
-    slot = cache_len % cap
-    cache["k"][:, slot] = k_new[:, 0]
-    cache["v"][:, slot] = v_new[:, 0]
+    # the new K/V into slot pos % cap, scattered at a device index (a
+    # scatter also has a DTensor rule for placed caches, index_copy_ not)
+    slot = torch.remainder(pos, cap).expand(b, 1, hkv, dh)
+    cache["k"].scatter_(1, slot, k_new.to(cache["k"].dtype))
+    cache["v"].scatter_(1, slot, v_new.to(cache["v"].dtype))
 
     # Ring buffer: absolute position stored at slot i is the largest p <= L
-    # with p % cap == i, i.e. abs(i) = L - ((L - i) mod cap); L = cache_len
+    # with p % cap == i, i.e. abs(i) = L - ((L - i) mod cap); L = pos
     # (the just-inserted token's position).
     idx = torch.arange(cap, device=x.device)
-    abs_pos = cache_len - torch.remainder(cache_len - idx, cap)
+    abs_pos = pos - torch.remainder(pos - idx, cap)
     valid = abs_pos >= 0
     window = cfg.sliding_window if window_override is None else window_override
     if window > 0:
-        valid &= (cache_len - abs_pos) < window
+        valid &= (pos - abs_pos) < window
     bias = torch.where(valid, 0.0, NEG_INF)[None, None, :].expand(b, 1, cap)
 
     out = dot_product_attention(q, cache["k"], cache["v"], bias, _scale(cfg))

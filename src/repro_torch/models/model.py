@@ -327,23 +327,39 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
     }
 
 
+def decode_position(state: State, device) -> torch.Tensor:
+    """The position of the token a decode step of ``state`` takes, as the
+    0-d int64 tensor on ``device`` that the step reads and advances in
+    place: ``state["pos"]``, or a new one at ``length`` for a state that
+    holds none yet (one from ``prefill`` or ``init_decode_state``, whose
+    placements cover only the caches)."""
+    pos = state.get("pos")
+    if pos is None:
+        pos = torch.full((), state["length"], dtype=torch.int64, device=device)
+    return pos
+
+
 def decode_step(params, state: State, token: torch.Tensor, cfg: ModelConfig, *,
                 enc_out: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, State]:
     """token: (B,) integer; enc_out: the encoder's output (B, S_enc, D) for
     enc-dec archs. Returns (logits (B,V), new state). The caches of
-    ``state`` are updated in place; ``length`` is a Python int."""
+    ``state`` are updated in place, and so is its position on the device
+    (``pos``, see ``decode_position``), which the step reads instead of a
+    host value; ``length`` is the same position as a Python int."""
+    pos = decode_position(state, token.device)
     with span("embed"):
         x = embed(params["embed"], token[:, None])
         if _decoder_sinusoids(cfg):
             # whisper: sinusoidal position for the current step, computed directly
             row = _sin_row(state["length"], cfg.d_model, x.device)
             x = x + row.to(x.dtype)[None, None]
-    x, cache = transformer.stack_decode_step(params["stack"], state["cache"], x,
-                                             state["length"], cfg, enc_out=enc_out)
+    x, cache = transformer.stack_decode_step(params["stack"], state["cache"], x, pos, cfg,
+                                             enc_out=enc_out)
     with span("head"):
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         logits = mask_pad_logits(unembed(_head(params), x)[:, 0, :], cfg)
-    return logits, {"cache": cache, "length": state["length"] + 1}
+    pos.add_(1)
+    return logits, {"cache": cache, "length": state["length"] + 1, "pos": pos}
 
 
 def _sin_row(pos: int, d: int, device) -> torch.Tensor:

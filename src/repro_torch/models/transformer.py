@@ -22,7 +22,7 @@ index; the residual adds are the enclosing step's self time.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -323,12 +323,24 @@ def stack_prefill(params: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
     return x, cache, aux
 
 
+def decode_graph_safe(cfg: ModelConfig) -> bool:
+    """Whether every layer's decode step runs on the device alone, with no
+    copy to or from the host and nothing taken from the host per step, so
+    a CUDA graph can capture it: self-attention on a device-held position,
+    the SSM and a dense FFN do. An MoE FFN copies its host-side expert
+    capacities to the device at each call, and a decoder over an encoder
+    takes a new encoder output and its sinusoid row from the host."""
+    return cfg.encoder_layers == 0 and not any(cfg.layer_is_moe(i)
+                                               for i in range(cfg.n_layers))
+
+
 def stack_decode_step(params: nn.ModuleList, cache: Cache, x: torch.Tensor,
-                      cache_len: int, cfg: ModelConfig, *,
+                      cache_len: Union[int, torch.Tensor], cfg: ModelConfig, *,
                       enc_out: Optional[torch.Tensor] = None,
                       ) -> Tuple[torch.Tensor, Cache]:
-    """One-token decode through the whole stack. x: (B, 1, D). Each layer's
-    cache is updated in place (see attention_decode_step, ssm_decode_step);
+    """One-token decode through the whole stack. x: (B, 1, D); cache_len:
+    the token's position (see attention_decode_step). Each layer's cache is
+    updated in place (see attention_decode_step, ssm_decode_step);
     cross-attention recomputes its K/V from ``enc_out`` at every step."""
     for i, (p, c) in enumerate(zip(params, cache)):
         kind = cfg.layer_kind(i)

@@ -9,24 +9,86 @@ estimator to the fleet-serving scenario (``runtime/serving.py``).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import telemetry
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import AdaptivePlan
 from repro_torch.core.estimators import ARSpeedEstimator
 from repro_torch.core.partitioner import even_split, proportional_split
-from repro_torch.models.model import decode_step, prefill
+from repro_torch.models.model import decode_position, decode_step, prefill
+from repro_torch.models.transformer import decode_graph_safe
 from repro_torch.runtime.sharding import mesh_context
+
+
+# Decode steps by how they ran, like the kernels' ``launches``: "capture"
+# counts the CUDA graphs captured, "replay" the steps a graph ran (a
+# capture's own step among them), "eager" the steps issued op by op.
+decode_steps = {"capture": 0, "replay": 0, "eager": 0}
+
+_capture_streams: Dict[torch.device, torch.cuda.Stream] = {}
+
+
+class _DecodeGraph:
+    """One batch's decode step captured as a CUDA graph. It reads the
+    token buffer ``tokens`` and writes ``next_tokens`` and ``logits`` in
+    its private memory pool; the caches and the position it updates in
+    place are the state's own, so replaying it steps that state. Freed,
+    pool and all, with the last decode state that holds it."""
+
+    def __init__(self, params, state: Dict, tokens: torch.Tensor, cfg: ModelConfig):
+        dev = tokens.device
+        stream = _capture_streams.get(dev)
+        if stream is None:
+            stream = _capture_streams[dev] = torch.cuda.Stream(dev)
+        self.tokens = tokens.clone()
+        self.graph = torch.cuda.CUDAGraph()
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.logits, _ = decode_step(params, state, self.tokens, cfg)
+                self.next_tokens = torch.argmax(self.logits, dim=-1).to(torch.int32)
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+
+    def __call__(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Replay on the current stream; fresh copies of the outputs."""
+        self.tokens.copy_(tokens)
+        self.graph.replay()
+        return self.next_tokens.clone(), self.logits.clone()
+
+
+def _graph_safe(cfg: ModelConfig, params, tokens: torch.Tensor,
+                enc_out: Optional[torch.Tensor]) -> bool:
+    """Whether a step can be captured: tokens on the card, unplaced params
+    (placed decode runs DTensor's host-side dispatch), no encoder output,
+    and only layers whose decode the device runs alone."""
+    return (tokens.is_cuda and enc_out is None
+            and not isinstance(next(params.parameters(), None), DTensor)
+            and decode_graph_safe(cfg))
 
 
 def make_serve_step(cfg: ModelConfig, *, sample: str = "greedy") -> Callable:
     """serve_step(params, state, tokens (B,), [enc_out]) -> (next_tokens (B,),
     logits (B,V), new state). The state's caches are updated in place.
-    Placed params (``runtime.sharding.place``) run on their mesh. Each call
-    is a ``decode_step`` span carrying the batch id its prefill bound."""
+    Placed params (``runtime.sharding.place``) run on their mesh.
+
+    On the card, a batch's first call captures the whole decode step as a
+    CUDA graph (``_DecodeGraph``) and every call, that one included,
+    replays it: one launch a step instead of one per kernel. The graph
+    lives in the returned state and dies with it. Inputs a graph cannot
+    hold (CPU tensors, placed params, an encoder output, an MoE layer; see
+    ``_graph_safe``) run the step eagerly. ``decode_steps`` counts each way.
+
+    Each call is a ``decode_step`` span carrying the batch id its prefill
+    bound and ``graph``: "capture", "replay" or "eager". The per-kind
+    spans inside it fire only where the step's Python runs: on a capture
+    and on an eager step."""
     if sample != "greedy":
         raise ValueError(sample)
 
@@ -34,10 +96,24 @@ def make_serve_step(cfg: ModelConfig, *, sample: str = "greedy") -> Callable:
     def serve_step(params, state, tokens: torch.Tensor,
                    enc_out: Optional[torch.Tensor] = None):
         batch, step = telemetry.batch_step(state["cache"])
-        with telemetry.span("decode_step", batch=batch, rows=tokens.shape[0], step=step), \
-                mesh_context(params):
-            logits, new_state = decode_step(params, state, tokens, cfg, enc_out=enc_out)
-            return torch.argmax(logits, dim=-1).to(torch.int32), logits, new_state
+        with telemetry.span("decode_step", batch=batch, rows=tokens.shape[0],
+                            step=step) as sp, mesh_context(params):
+            graph, how = state.get("graph"), "replay"
+            if graph is None and _graph_safe(cfg, params, tokens, enc_out):
+                state = {**state, "pos": decode_position(state, tokens.device)}
+                graph, how = _DecodeGraph(params, state, tokens, cfg), "capture"
+                decode_steps["capture"] += 1
+            if graph is None:
+                how = "eager"
+                decode_steps["eager"] += 1
+                logits, new_state = decode_step(params, state, tokens, cfg, enc_out=enc_out)
+                next_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+            else:
+                decode_steps["replay"] += 1
+                next_tokens, logits = graph(tokens)
+                new_state = {**state, "length": state["length"] + 1, "graph": graph}
+            sp.set(graph=how)
+            return next_tokens, logits, new_state
 
     return serve_step
 

@@ -442,5 +442,6 @@ def cache_shardings(cfg: ModelConfig, mesh, mesh_cfg: MeshConfig,
                 return tuple(lst)
             return t
         ax = [{k: rewrite(t) for k, t in layer.items()} for layer in ax]
-    # decode state = {"cache": ..., "length": Python int (not placed)}
+    # decode state = {"cache": ..., "length": Python int (not placed); a decode
+    # step adds "pos", a plain tensor, after placement}
     return shardings_for(cache_abstract, {"cache": ax}, mesh, rules, report)

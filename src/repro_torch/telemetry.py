@@ -25,6 +25,14 @@ the list, so a recording holds no device memory.
 One recording is open per process at a time (the spans sit inside model
 functions that no recorder object is passed to); ``recording`` closes it
 on exit, whatever happens inside.
+
+Spans mark host code, so they fire only where the step's Python runs. On
+the card a batch's decode step is captured once as a CUDA graph and then
+replayed (``runtime.serve_loop.make_serve_step``): the per-kind spans
+(``embed``, ``norm``, ``attn``, ``ssm``, ``ffn``, ``head``) fire on the
+capturing step alone, and a replayed ``decode_step`` span has no
+children. Every ``decode_step`` span says which it was in its ``graph``
+attribute: "capture", "replay" or "eager".
 """
 from __future__ import annotations
 

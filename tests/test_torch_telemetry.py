@@ -10,6 +10,7 @@ import torch
 from repro_torch import telemetry
 from repro_torch.configs import get_reduced
 from repro_torch.models.model import init_params
+from repro_torch.runtime import serve_loop
 from repro_torch.runtime.serve_loop import HeMTBatcher, make_prefill_step, make_serve_step
 
 ARCHS = {"granite-3-8b": "attn", "mamba2-2.7b": "ssm"}
@@ -72,7 +73,8 @@ def test_one_prefill_and_its_steps_give_the_span_tree(arch):
     assert [spans[i].name for i in roots] == ["prefill"] + ["decode_step"] * STEPS
     assert {spans[i].batch for i in roots} == {0}
     assert spans[roots[0]].attrs == {"rows": 2, "prompt_len": 8}
-    assert [spans[i].attrs for i in roots[1:]] == [{"rows": 2, "step": k} for k in range(STEPS)]
+    assert [spans[i].attrs for i in roots[1:]] == [{"rows": 2, "step": k, "graph": "eager"}
+                                                   for k in range(STEPS)]
     mixer = ARCHS[arch]
     n = cfg.n_layers
     for i in roots:
@@ -88,6 +90,19 @@ def test_one_prefill_and_its_steps_give_the_span_tree(arch):
         self_s = spans[i].end - spans[i].start - sum(s.end - s.start for s in kids)
         assert self_s >= 0
         assert all(children(spans, spans.index(s)) == [] for s in kids)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_step_span_says_how_the_step_ran(arch):
+    """On the CPU every step is eager: each ``decode_step`` span says so,
+    as ``serve_loop.decode_steps`` counts."""
+    before = dict(serve_loop.decode_steps)
+    with telemetry.recording(CountingClock()) as rec:
+        serve(arch)
+    assert [s.attrs["graph"] for s in rec.spans if s.name == "decode_step"] == \
+        ["eager"] * STEPS
+    assert {k: serve_loop.decode_steps[k] - n for k, n in before.items()} == \
+        {"capture": 0, "replay": 0, "eager": STEPS}
 
 
 def test_a_second_recording_raises():
