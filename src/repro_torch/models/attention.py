@@ -187,6 +187,16 @@ def _cross_attention(params: Params, x: torch.Tensor, kv_source: torch.Tensor,
     return out.reshape(b, s, hq * dh) @ params["wo"]
 
 
+def _attend(params: Params, x: torch.Tensor, cfg: AttentionConfig, positions: torch.Tensor,
+            window_override: Optional[int], impl: str):
+    """Full-sequence self-attention: (out (B,S,D), roped k, v)."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    window = cfg.sliding_window if window_override is None else window_override
+    out = _self_attention(q, k, v, positions, cfg, window, impl)
+    return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ params["wo"], k, v
+
+
 def attention_apply(params: Params, x: torch.Tensor, cfg: AttentionConfig,
                     positions: torch.Tensor, *, window_override: Optional[int] = None,
                     kv_source: Optional[torch.Tensor] = None,
@@ -199,11 +209,7 @@ def attention_apply(params: Params, x: torch.Tensor, cfg: AttentionConfig,
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}: {impl!r}")
         return _cross_attention(params, x, kv_source, cfg)
-    b, s, _ = x.shape
-    q, k, v = _project_qkv(params, x, cfg, positions)
-    window = cfg.sliding_window if window_override is None else window_override
-    out = _self_attention(q, k, v, positions, cfg, window, impl)
-    return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ params["wo"]
+    return _attend(params, x, cfg, positions, window_override, impl)[0]
 
 
 def attention_prefill(params: Params, x: torch.Tensor, cfg: AttentionConfig,
@@ -216,13 +222,10 @@ def attention_prefill(params: Params, x: torch.Tensor, cfg: AttentionConfig,
     out ring-buffer style: slot i holds the largest position p < S with
     p % cache_len == i (matches attention_decode_step's addressing).
     """
-    b, s, _ = x.shape
-    q, k, v = _project_qkv(params, x, cfg, positions)
-    window = cfg.sliding_window if window_override is None else window_override
-    out = _self_attention(q, k, v, positions, cfg, window, impl)
-    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ params["wo"]
+    out, k, v = _attend(params, x, cfg, positions, window_override, impl)
 
     # ring-layout fill: slot i <- position p = s-1 - ((s-1-i) mod cap), p>=0
+    s = x.shape[1]
     idx = torch.arange(cache_len, device=x.device)
     src = (s - 1) - torch.remainder((s - 1) - idx, cache_len)
     valid = (src >= 0)[None, :, None, None]

@@ -151,14 +151,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return rotated
 
 
-def sinusoidal_positions(n_pos: int, d: int, *, device=None) -> torch.Tensor:
-    """Whisper-style sinusoidal embedding table (n_pos, d), fp32."""
+def _sinusoids(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings (..., d) of fp32 positions."""
     half = d // 2
     log_timescale = math.log(10_000.0) / max(half - 1, 1)
     inv = torch.exp(-log_timescale * torch.arange(half, dtype=torch.float32,
-                                                  device=device))
-    scaled = torch.arange(n_pos, dtype=torch.float32, device=device)[:, None] * inv[None, :]
-    return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=1)
+                                                  device=pos.device))
+    scaled = pos[..., None] * inv
+    return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=-1)
+
+
+def sinusoidal_positions(n_pos: int, d: int, *, device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal embedding table (n_pos, d), fp32."""
+    return _sinusoids(torch.arange(n_pos, dtype=torch.float32, device=device), d)
 
 
 # --------------------------------------------------------------------------

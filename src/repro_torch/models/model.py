@@ -13,13 +13,14 @@ layer, a KV ring buffer or an SSM ``{"conv", "state"}`` pair.
 ``requires_grad`` on (``runtime.train_loop``). On ``device="meta"`` it
 builds shapes and dtypes only (the dry-run's stand-ins for 100B+
 configs); ``params_axes`` names each parameter's logical axes. The
-embedding and the head (final norm, unembedding, pad mask) are
-``repro_torch.telemetry`` spans (``embed``, ``head``).
+embedding (``_embed``) and a serving step's head (``_last_logits``: final
+norm, unembedding, pad mask) are one function each, which every pass
+that has them calls, and ``repro_torch.telemetry`` spans (``embed``,
+``head``).
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 import os
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -31,7 +32,8 @@ from repro_torch import devices
 from repro_torch.configs.base import ModelConfig, padded_vocab_size
 from repro_torch.models import frontends, transformer
 from repro_torch.models.layers import (
-    embed, embedding_init, rmsnorm, rmsnorm_init, sinusoidal_positions, unembed,
+    _sinusoids, embed, embedding_init, rmsnorm, rmsnorm_init, sinusoidal_positions,
+    unembed,
 )
 from repro_torch.telemetry import span
 
@@ -143,20 +145,29 @@ def encode(params, enc_feats: torch.Tensor, cfg: ModelConfig, *,
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
+def _embed(params, tokens: Optional[torch.Tensor], cfg: ModelConfig,
+           input_embeds: Optional[torch.Tensor] = None, start: int = 0) -> torch.Tensor:
+    """The decoder's input (B,S,D) from tokens (B,S), or from embedding
+    prompts through the adapter, at positions ``start`` onwards."""
+    with span("embed"):
+        if input_embeds is not None:
+            x = frontends.adapter_apply(params["adapter"], input_embeds)
+        else:
+            x = embed(params["embed"], tokens)
+        if _decoder_sinusoids(cfg):
+            pos = torch.arange(start, start + x.shape[1], dtype=torch.float32, device=x.device)
+            x = x + _sinusoids(pos, cfg.d_model)[None].to(x.dtype)
+    return x
+
+
 def _inputs(params, tokens: Optional[torch.Tensor], cfg: ModelConfig,
             input_embeds: Optional[torch.Tensor], enc_feats: Optional[torch.Tensor],
             impl: str, remat: str,
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """The decoder's input (B,S,D), its positions and the encoder's output
     (None without an encoder)."""
-    with span("embed"):
-        if input_embeds is not None:
-            x = frontends.adapter_apply(params["adapter"], input_embeds)
-        else:
-            x = embed(params["embed"], tokens)
-        b, s = x.shape[:2]
-        if _decoder_sinusoids(cfg):
-            x = x + sinusoidal_positions(s, cfg.d_model, device=x.device)[None].to(x.dtype)
+    x = _embed(params, tokens, cfg, input_embeds)
+    b, s = x.shape[:2]
     enc_out = None
     if cfg.encoder_layers > 0:
         if enc_feats is None:
@@ -296,6 +307,14 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
 # decode
 # --------------------------------------------------------------------------
 
+def _last_logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A serving step's head: the final norm and the unembedding of the last
+    position, pad logits masked; (B, V)."""
+    with span("head"):
+        x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
+        return mask_pad_logits(unembed(_head(params), x)[:, 0, :], cfg)
+
+
 def prefill(params, tokens: Optional[torch.Tensor], cfg: ModelConfig, max_len: int, *,
             enc_feats: Optional[torch.Tensor] = None,
             input_embeds: Optional[torch.Tensor] = None,
@@ -311,10 +330,7 @@ def prefill(params, tokens: Optional[torch.Tensor], cfg: ModelConfig, max_len: i
     s = x.shape[1]
     x, cache, _ = transformer.stack_prefill(params["stack"], x, cfg, pos, max_len,
                                             enc_out=enc_out, impl=impl)
-    with span("head"):
-        x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
-        logits = mask_pad_logits(unembed(_head(params), x)[:, 0, :], cfg)
-    return logits, {"cache": cache, "length": s}
+    return _last_logits(params, x, cfg), {"cache": cache, "length": s}
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -347,25 +363,9 @@ def decode_step(params, state: State, token: torch.Tensor, cfg: ModelConfig, *,
     (``pos``, see ``decode_position``), which the step reads instead of a
     host value; ``length`` is the same position as a Python int."""
     pos = decode_position(state, token.device)
-    with span("embed"):
-        x = embed(params["embed"], token[:, None])
-        if _decoder_sinusoids(cfg):
-            # whisper: sinusoidal position for the current step, computed directly
-            row = _sin_row(state["length"], cfg.d_model, x.device)
-            x = x + row.to(x.dtype)[None, None]
+    x = _embed(params, token[:, None], cfg, start=state["length"])
     x, cache = transformer.stack_decode_step(params["stack"], state["cache"], x, pos, cfg,
                                              enc_out=enc_out)
-    with span("head"):
-        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        logits = mask_pad_logits(unembed(_head(params), x)[:, 0, :], cfg)
+    logits = _last_logits(params, x, cfg)
     pos.add_(1)
     return logits, {"cache": cache, "length": state["length"] + 1, "pos": pos}
-
-
-def _sin_row(pos: int, d: int, device) -> torch.Tensor:
-    """Row ``pos`` of ``sinusoidal_positions(·, d)``, in fp32."""
-    half = d // 2
-    inv = torch.exp(-math.log(10_000.0) / max(half - 1, 1)
-                    * torch.arange(half, dtype=torch.float32, device=device))
-    scaled = torch.tensor(float(pos), dtype=torch.float32, device=device) * inv
-    return torch.cat([torch.sin(scaled), torch.cos(scaled)])

@@ -14,14 +14,18 @@ stack is an ``nn.ModuleList`` with one entry per layer (layer ``i`` plays
 the reference's ``sub{i % period}`` of group ``i // period``;
 ``repro_torch.convert`` moves the leaves), and the scan is a Python loop.
 Every init function has a mirror ``*_axes`` function naming each leaf's
-logical axes (``runtime.sharding`` maps them onto a mesh). In the prefill
-and decode passes each layer's norms, mixer (``attn`` or ``ssm``), cross
-block and FFN are ``repro_torch.telemetry`` spans carrying the layer
-index; the residual adds are the enclosing step's self time.
+logical axes (``runtime.sharding`` maps them onto a mesh). One body,
+``_layer``, runs a layer in all three passes (``stack_apply``,
+``stack_prefill``, ``stack_decode_step``), which differ only in the mixer
+call they hand it. Its norms, mixer (``attn`` or ``ssm``), cross block
+and FFN are ``repro_torch.telemetry`` spans carrying the layer index (a
+function call each with no recording open); the residual adds are the
+enclosing step's self time.
 """
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
@@ -76,12 +80,10 @@ def _cache_len(cfg: ModelConfig, idx: int, max_len: int) -> int:
     return min(max_len, window) if window > 0 else max_len
 
 
-def _ffn_apply(p: Params, h: torch.Tensor, cfg: ModelConfig, idx: int, constrain=None,
-               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The FFN of layer ``idx``: (out, moe aux loss or None)."""
-    if cfg.layer_is_moe(idx):
-        return moe_mod.moe_apply(p["ffn"], h, cfg.moe, cfg.act, constrain)
-    return mlp_apply(p["ffn"], h, cfg.act), None
+def _has_ffn(cfg: ModelConfig, idx: int) -> bool:
+    """Whether layer ``idx`` has an FFN block (``norm2``, ``ffn``): every
+    layer with ``d_ff > 0`` but the SSM layers of a pure SSM stack."""
+    return cfg.d_ff > 0 and not (cfg.layer_kind(idx) == "ssm" and cfg.family == "ssm")
 
 
 # ==========================================================================
@@ -91,8 +93,7 @@ def _ffn_apply(p: Params, h: torch.Tensor, cfg: ModelConfig, idx: int, constrain
 def _layer_init(gen: torch.Generator, cfg: ModelConfig, idx: int, *,
                 cross: bool = False, dtype=torch.bfloat16, device=None) -> nn.ModuleDict:
     check_ported(cfg)
-    kind = cfg.layer_kind(idx)
-    if kind == "attn":
+    if cfg.layer_kind(idx) == "attn":
         mixer = attn.attention_init(gen, cfg.d_model, cfg.attention, dtype=dtype,
                                     device=device)
     else:
@@ -103,7 +104,7 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig, idx: int, *,
         p["norm_cross"] = rmsnorm_init(cfg.d_model, device=device)
         p["cross"] = attn.attention_init(gen, cfg.d_model, cfg.attention, dtype=dtype,
                                          device=device)
-    if cfg.d_ff > 0 and not (kind == "ssm" and cfg.family == "ssm"):
+    if _has_ffn(cfg, idx):
         p["norm2"] = rmsnorm_init(cfg.d_model, device=device)
         if cfg.layer_is_moe(idx):
             p["ffn"] = moe_mod.moe_init(gen, cfg.d_model, cfg.d_ff, cfg.moe, cfg.glu,
@@ -122,9 +123,8 @@ def _attn_axes() -> Dict[str, Axes]:
 def layer_axes(cfg: ModelConfig, idx: int, *, cross: bool = False) -> Dict[str, Any]:
     """Logical axis names per leaf of layer ``idx``, mirroring ``_layer_init``
     (the reference's ``_layer_axes`` without its scanned "layers" axis)."""
-    kind = cfg.layer_kind(idx)
     ax: Dict[str, Any] = {"norm1": {"scale": (None,)}}
-    if kind == "attn":
+    if cfg.layer_kind(idx) == "attn":
         ax["mixer"] = _attn_axes()
     else:
         ax["mixer"] = {"w_in": ("embed", "ssm_inner"),
@@ -135,7 +135,7 @@ def layer_axes(cfg: ModelConfig, idx: int, *, cross: bool = False) -> Dict[str, 
     if cross:
         ax["norm_cross"] = {"scale": (None,)}
         ax["cross"] = _attn_axes()
-    if cfg.d_ff > 0 and not (kind == "ssm" and cfg.family == "ssm"):
+    if _has_ffn(cfg, idx):
         ax["norm2"] = {"scale": (None,)}
         if cfg.layer_is_moe(idx):
             ax["ffn"] = {"router": ("embed", None),
@@ -161,40 +161,56 @@ def flat_axes(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Axes]:
     return out
 
 
-def _cross_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
-                 enc_out: Optional[torch.Tensor]) -> torch.Tensor:
-    """The cross-attention block of a decoder layer over an encoder
-    (always the dense math, as the reference's ``impl="xla"``)."""
-    if enc_out is None:
-        raise ValueError(f"{cfg.name}: a decoder over an encoder needs enc_out")
-    h = rmsnorm(p["norm_cross"], x, cfg.norm_eps)
-    return x + attn.attention_apply(p["cross"], h, cfg.attention, None,
-                                    kv_source=enc_out)
+def _layer(p: Params, x: torch.Tensor, cfg: ModelConfig, idx: int, mix, *,
+           enc_out: Optional[torch.Tensor] = None, constrain=None,
+           ) -> Tuple[torch.Tensor, Any, Optional[torch.Tensor]]:
+    """Pre-norm residual layer ``idx`` around ``mix(p["mixer"], h) -> (out,
+    cache)``, the one thing a pass chooses: norm1, mixer, residual add,
+    cross block, norm2, FFN, residual add, each part a span. Returns (x,
+    the mixer's cache, moe aux loss or None). A layer dict without ``ffn``
+    skips the FFN block."""
+    aux = None
+    with span("norm", layer=idx):
+        h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    with span(cfg.layer_kind(idx), layer=idx):
+        h, cache = mix(p["mixer"], h)
+    x = x + h
+    if "cross" in p:
+        # over an encoder's output: always the dense math, as the
+        # reference's impl="xla"
+        if enc_out is None:
+            raise ValueError(f"{cfg.name}: a decoder over an encoder needs enc_out")
+        with span("cross", layer=idx):
+            h = rmsnorm(p["norm_cross"], x, cfg.norm_eps)
+            x = x + attn.attention_apply(p["cross"], h, cfg.attention, None, kv_source=enc_out)
+    if "ffn" in p:
+        with span("norm", layer=idx):
+            h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+        with span("ffn", layer=idx):
+            if cfg.layer_is_moe(idx):
+                h, aux = moe_mod.moe_apply(p["ffn"], h, cfg.moe, cfg.act, constrain)
+            else:
+                h = mlp_apply(p["ffn"], h, cfg.act)
+        x = x + h
+    return x, cache, aux
 
 
 def _layer_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, idx: int,
                  positions: torch.Tensor, *, enc_out: Optional[torch.Tensor] = None,
                  causal: bool = True, impl: str = "xla", constrain=None,
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Pre-norm residual layer. Returns (x, moe aux loss or None).
-    ``causal=False`` (an encoder) lifts the causal mask; ``constrain`` is
-    the sharding hook of ``stack_apply``."""
-    aux = None
-    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    if cfg.layer_kind(idx) == "attn":
-        acfg = cfg.attention if causal else dataclasses.replace(cfg.attention,
-                                                                causal=False)
-        h = attn.attention_apply(p["mixer"], h, acfg, positions,
-                                 window_override=_window(cfg, idx), impl=impl)
-    else:
-        h = ssm_mod.ssm_apply(p["mixer"], h, cfg.d_model, cfg.ssm, impl=impl,
-                              constrain=constrain)
-    x = x + h
-    if "cross" in p:
-        x = _cross_apply(p, x, cfg, enc_out)
-    if "ffn" in p:
-        h, aux = _ffn_apply(p, rmsnorm(p["norm2"], x, cfg.norm_eps), cfg, idx, constrain)
-        x = x + h
+    """Layer ``idx`` of the full-sequence pass. Returns (x, moe aux loss or
+    None). ``causal=False`` (an encoder) lifts the causal mask; ``constrain``
+    is the sharding hook of ``stack_apply``."""
+    def mix(mp: Params, h: torch.Tensor):
+        if cfg.layer_kind(idx) == "ssm":
+            return ssm_mod.ssm_apply(mp, h, cfg.d_model, cfg.ssm, impl=impl,
+                                     constrain=constrain), None
+        acfg = cfg.attention if causal else dataclasses.replace(cfg.attention, causal=False)
+        return attn.attention_apply(mp, h, acfg, positions, window_override=_window(cfg, idx),
+                                    impl=impl), None
+
+    x, _, aux = _layer(p, x, cfg, idx, mix, enc_out=enc_out, constrain=constrain)
     return x, aux
 
 
@@ -240,15 +256,11 @@ def stack_apply(params: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
     if remat not in REMATS:
         raise ValueError(f"remat must be one of {REMATS}: {remat!r}")
     recompute = remat != "none" and torch.is_grad_enabled()
+    layer = partial(checkpoint, _layer_apply, use_reentrant=False) if recompute else _layer_apply
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(params):
-        if recompute:
-            x, aux_i = checkpoint(_layer_apply, p, x, cfg, i, positions, enc_out=enc_out,
-                                  causal=causal, impl=impl, constrain=constrain,
-                                  use_reentrant=False)
-        else:
-            x, aux_i = _layer_apply(p, x, cfg, i, positions, enc_out=enc_out,
-                                    causal=causal, impl=impl, constrain=constrain)
+        x, aux_i = layer(p, x, cfg, i, positions, enc_out=enc_out, causal=causal, impl=impl,
+                         constrain=constrain)
         if aux_i is not None:
             aux = aux + aux_i
         if constrain is not None and i % cfg.layer_period == cfg.layer_period - 1:
@@ -296,29 +308,15 @@ def stack_prefill(params: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
     cache: Cache = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(params):
-        kind = cfg.layer_kind(i)
-        with span("norm", layer=i):
-            hin = rmsnorm(p["norm1"], x, cfg.norm_eps)
-        with span(kind, layer=i):
-            if kind == "attn":
-                out, c = attn.attention_prefill(p["mixer"], hin, cfg.attention, positions,
-                                                _cache_len(cfg, i, max_len),
-                                                window_override=_window(cfg, i), impl=impl)
-            else:
-                out, c = ssm_mod.ssm_prefill(p["mixer"], hin, cfg.d_model, cfg.ssm,
-                                             impl=impl)
-        x = x + out
-        if "cross" in p:
-            with span("cross", layer=i):
-                x = _cross_apply(p, x, cfg, enc_out)
-        if "ffn" in p:
-            with span("norm", layer=i):
-                hin = rmsnorm(p["norm2"], x, cfg.norm_eps)
-            with span("ffn", layer=i):
-                out, aux_i = _ffn_apply(p, hin, cfg, i)
-            x = x + out
-            if aux_i is not None:
-                aux = aux + aux_i
+        if cfg.layer_kind(i) == "attn":
+            mix = partial(attn.attention_prefill, cfg=cfg.attention, positions=positions,
+                          cache_len=_cache_len(cfg, i, max_len),
+                          window_override=_window(cfg, i), impl=impl)
+        else:
+            mix = partial(ssm_mod.ssm_prefill, d_model=cfg.d_model, cfg=cfg.ssm, impl=impl)
+        x, c, aux_i = _layer(p, x, cfg, i, mix, enc_out=enc_out)
+        if aux_i is not None:
+            aux = aux + aux_i
         cache.append(c)
     return x, cache, aux
 
@@ -343,24 +341,10 @@ def stack_decode_step(params: nn.ModuleList, cache: Cache, x: torch.Tensor,
     updated in place (see attention_decode_step, ssm_decode_step);
     cross-attention recomputes its K/V from ``enc_out`` at every step."""
     for i, (p, c) in enumerate(zip(params, cache)):
-        kind = cfg.layer_kind(i)
-        with span("norm", layer=i):
-            hin = rmsnorm(p["norm1"], x, cfg.norm_eps)
-        with span(kind, layer=i):
-            if kind == "attn":
-                out, _ = attn.attention_decode_step(p["mixer"], hin, c, cache_len,
-                                                    cfg.attention,
-                                                    window_override=_window(cfg, i))
-            else:
-                out, _ = ssm_mod.ssm_decode_step(p["mixer"], hin, c, cfg.d_model, cfg.ssm)
-        x = x + out
-        if "cross" in p:
-            with span("cross", layer=i):
-                x = _cross_apply(p, x, cfg, enc_out)
-        if "ffn" in p:
-            with span("norm", layer=i):
-                hin = rmsnorm(p["norm2"], x, cfg.norm_eps)
-            with span("ffn", layer=i):
-                out = _ffn_apply(p, hin, cfg, i)[0]
-            x = x + out
+        if cfg.layer_kind(i) == "attn":
+            mix = partial(attn.attention_decode_step, cache=c, cache_len=cache_len,
+                          cfg=cfg.attention, window_override=_window(cfg, i))
+        else:
+            mix = partial(ssm_mod.ssm_decode_step, cache=c, d_model=cfg.d_model, cfg=cfg.ssm)
+        x = _layer(p, x, cfg, i, mix, enc_out=enc_out)[0]
     return x, cache

@@ -7,7 +7,10 @@ the serving path pays a function call and nothing more. Inside
 ``recording(clock)`` each span appends a :class:`Span`: its name, start
 and end on the recording's clock, the index of the span that encloses it
 (``parent``; a span's self time is its duration less its children's),
-the batch it serves and its attributes.
+the batch it serves and its attributes. The model's full pass
+(``forward``, ``loss_fn``, training) runs the serving steps' layer body,
+so it opens the same per-layer spans, outside any step; with no
+recording open they cost it the same function call each.
 
 The clock is the opener's: this module reads none of its own. Only the
 code that opens a device trace knows that trace's clock (``torch.profiler``

@@ -15,8 +15,9 @@ import torch
 from repro.configs import get_reduced as j_get_reduced
 from repro.models import model as jm
 from repro_torch import convert
-from repro_torch.configs import SSMConfig, get_config, get_reduced
+from repro_torch.configs import ARCH_IDS, SSMConfig, get_config, get_reduced
 from repro_torch.models import model as tm
+from repro_torch.models import transformer
 
 torch.set_num_threads(2)
 
@@ -112,6 +113,32 @@ def test_prefill_matches_stepwise_decode():
     for a, b in zip(state_pf["cache"], state["cache"]):
         for key in ("k", "v"):
             assert float((a[key] - b[key]).abs().max()) < 5e-4
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_stack_prefill_hidden_states_equal_stack_apply(arch, impl):
+    """The stack's full pass and its prefill run one layer body around the
+    same mixer math, so on the same input they give the same hidden states
+    and MoE aux loss bit for bit, on every reduced arch (whisper's decoder
+    over an encoder output), on the dense path and on the kernels' (their
+    plain versions on the CPU)."""
+    cfg = get_reduced(arch)
+    params = tm.init_params(cfg, 1, device="cpu")
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn((B, S, cfg.d_model), generator=gen).to(tm._dtype(cfg))
+    pos = torch.arange(S)[None].expand(B, S)
+    enc_out = None
+    if cfg.encoder_layers > 0:
+        enc_out = torch.randn((B, 6, cfg.d_model), generator=gen).to(x.dtype)
+    with torch.no_grad():
+        want, want_aux = transformer.stack_apply(params["stack"], x, cfg, pos,
+                                                 enc_out=enc_out, impl=impl)
+        got, cache, aux = transformer.stack_prefill(params["stack"], x, cfg, pos, MAX_LEN,
+                                                    enc_out=enc_out, impl=impl)
+    assert torch.equal(got, want)
+    assert torch.equal(aux, want_aux)
+    assert len(cache) == cfg.n_layers
 
 
 def test_converter_round_trip_bf16_bits_exact():

@@ -264,6 +264,7 @@ NAME_EXCEPTIONS = {
     ("runtime/train_loop.py", "_loss_with_aux"): "jax.value_and_grad's target; "
                                                  "value_and_grad calls loss_fn",
     ("models/transformer.py", "_layer_axes"): "layer_axes",
+    ("models/model.py", "_sin_row"): "models/layers.py:_sinusoids",
     ("analysis/rules/hl005_tracer_safety.py", "_decorator_static_argnames"):
         "jit's static_argnames; torch's tracing entries take none",
 }

@@ -9,7 +9,7 @@ import torch
 
 from repro_torch import telemetry
 from repro_torch.configs import get_reduced
-from repro_torch.models.model import init_params
+from repro_torch.models.model import forward, init_params
 from repro_torch.runtime import serve_loop
 from repro_torch.runtime.serve_loop import HeMTBatcher, make_prefill_step, make_serve_step
 
@@ -90,6 +90,31 @@ def test_one_prefill_and_its_steps_give_the_span_tree(arch):
         self_s = spans[i].end - spans[i].start - sum(s.end - s.start for s in kids)
         assert self_s >= 0
         assert all(children(spans, spans.index(s)) == [] for s in kids)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_gives_each_layer_the_spans_prefill_does(arch):
+    """The full pass runs the layer body of prefill and decode: under a
+    recording ``forward`` gives the embedding and then, layer by layer, the
+    same norm, mixer[, norm, ffn] spans as a prefill's children, each a
+    root (no serving step encloses a forward) with no children."""
+    cfg = get_reduced(arch)
+    params = init_params(cfg, 0, device="cpu")
+    prompts = torch.randint(0, cfg.vocab_size, (2, 8), generator=torch.Generator().manual_seed(1))
+    with telemetry.recording(CountingClock()) as rec:
+        forward(params, prompts, cfg, impl="pallas")
+    full = rec.spans
+    with telemetry.recording(CountingClock()) as rec:
+        make_prefill_step(cfg, 12, impl="pallas")(params, prompts)
+    root = [i for i, s in enumerate(rec.spans) if s.name == "prefill"]
+    assert len(root) == 1
+    kids = children(rec.spans, root[0])
+    assert [s.name for s in kids][::len(kids) - 1] == ["embed", "head"]
+    assert [(s.name, s.attrs) for s in full] == [(s.name, s.attrs) for s in kids[:-1]]
+    assert all(s.parent is None for s in full)
+    per_layer = ["norm", ARCHS[arch]] + (["norm", "ffn"] if "ffn" in {s.name for s in full} else [])
+    assert [(s.name, s.attrs["layer"]) for s in full[1:]] == \
+        [(name, i) for i in range(cfg.n_layers) for name in per_layer]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
